@@ -1,0 +1,67 @@
+"""Shared workload setup: data arrays, size table, model restore
+(counterpart of sln_tpu/workloads/common.py)."""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+from sln_tpu_torch.config import Config
+from sln_tpu_torch.data import synthetic, tensorize
+from sln_tpu_torch.data.augment import SizeInfo
+from sln_tpu_torch.models.vae import Sg2ScVAE, params_from_jax
+
+
+def load_arrays(path_or_synthetic: Union[str, int], cfg: Config, device,
+                synthetic_seed: int = 0
+                ) -> Tuple[Dict[str, np.ndarray], SizeInfo]:
+    """path (reference JSON schema) or int N synthetic rooms -> padded
+    numpy arrays + the size table on `device`."""
+    if isinstance(path_or_synthetic, int):
+        rooms = synthetic.generate_rooms(path_or_synthetic,
+                                         seed=synthetic_seed)
+    else:
+        rooms = tensorize.load_rooms(path_or_synthetic)
+    arrays = tensorize.tensorize_rooms(rooms, cfg.data.max_objects)
+    t, m, a = synthetic.default_size_table()
+    size_info = SizeInfo(*(torch.as_tensor(x, device=device)
+                           for x in (t, m, a)))
+    return arrays, size_info
+
+
+def checkpoint_path(output_dir: str, name: str) -> str:
+    """Where training leaves its latest checkpoint (the JAX package's
+    train/checkpoint.py latest_path)."""
+    return os.path.join(output_dir, f"latest_{name}_with_model.ckpt")
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A JAX `.ckpt` (a pickle of numpy trees, written by this project's
+    trainer) -> Sg2ScVAE state_dict."""
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f)
+    return params_from_jax(ckpt["model_state"])
+
+
+def restore_model(cfg: Config, device, allow_random: bool = False
+                  ) -> Sg2ScVAE:
+    """Sg2ScVAE in eval mode with the latest checkpoint's weights, or
+    seeded random weights when there is none and allow_random is set."""
+    path = checkpoint_path(cfg.train.output_dir, cfg.train.checkpoint_name)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = Sg2ScVAE(cfg.model)
+    if os.path.isfile(path):
+        model.load_state_dict(load_jax_checkpoint(path))
+        print(f"Restored checkpoint from {path}")
+    elif allow_random:
+        print(f"WARNING: no checkpoint at {path}; using random weights")
+    else:
+        raise FileNotFoundError(
+            f"checkpoint not found: {path} (train first, or pass "
+            f"--allow_random_weights)")
+    return model.to(device).eval()
