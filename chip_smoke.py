@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (sln_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase, as below
+    python3 chip_smoke.py --kernels-only   # device, build, kernels, times
 
 Phases, each printing a line as it ends:
   1. device   the card must be there (else this exits non-zero); prints
               nvidia-smi's name and power limit
-  2. build    nvcc builds the CUDA kernels from sln_tpu_torch/csrc
+  2. build    nvcc builds the CUDA kernels from sln_tpu_torch/csrc; prints
+              registers and spills (ptxas), the backward's resident blocks
+              and warps per SM, and the opcodes of its inner loop
+              (cuobjdump -sass; printed where found, never a failure)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes: 8 synthetic rooms (seed 3) at
               96 px, one room at 256 px, and a scene whose faces are all
@@ -17,10 +21,14 @@ Phases, each printing a line as it ends:
               configuration (8 rooms, 96 px, 60 iterations) and one room at
               256 px; launch counts prove both kernels ran; two iterations
               on the card agree with the same iterations on the CPU
-  5. times    kernel and plain-version times at the 96 px, 8-room shapes
-              (CUDA events), beside each kernel's bound
+  5. times    active chunks per tile and work items at 96 px / 8 rooms and
+              256 px / 1 room; kernel and plain-version times at the 96 px,
+              8-room shapes and the backward's at 256 px (CUDA events),
+              beside each kernel's bound
   6. profile  torch.profiler over three 8-room refine steps: device busy
-              share, the top kernels by device time, the CUDA runtime calls
+              share, the top kernels by device time, the CUDA runtime calls,
+              device-to-host copies, and the runtime's copies and
+              synchronisations inside the steps and outside them
 Then one JSON line of kernel records, the card's nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failed phase raises, so the
 script exits non-zero and prints no result. All outputs go to a temporary
@@ -29,10 +37,12 @@ directory that is removed at the end.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import tempfile
@@ -167,7 +177,7 @@ def event_ms(fn, reps: int, warmup: int) -> float:
 def profile_steps(refiner, n: int) -> None:
     """torch.profiler over n refine steps: where the step's time goes."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     refiner.step()
     torch.cuda.synchronize()
@@ -175,7 +185,8 @@ def profile_steps(refiner, n: int) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            refiner.step()
+            with record_function("refine_step"):
+                refiner.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = prof.key_averages()
@@ -184,7 +195,11 @@ def profile_steps(refiner, n: int) -> None:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    kernels_ = [e for e in events if e.device_type == DeviceType.CUDA]
+    # device-side ranges of annotations (refine_step, Optimizer.step#...)
+    # share their name with a host event; they span kernels, not add to them
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernels_ = [e for e in events if e.device_type == DeviceType.CUDA
+                and e.key not in host_keys]
     busy_ms = sum(dev_us(e) for e in kernels_) / 1e3 / n
     print(f"  profiled step (8 rooms, 96 px): wall {wall_ms:.3f} ms under "
           f"the profiler, device busy {busy_ms:.3f} ms "
@@ -199,21 +214,146 @@ def profile_steps(refiner, n: int) -> None:
                     reverse=True)[:6]:
         print(f"    host   {e.self_cpu_time_total / 1e3 / n:8.3f} ms/step "
               f"x{e.count / n:5.0f}  {e.key}")
+    # the runtime's copies and waits, inside the steps and outside them
+    # (this script's synchronize and the profiler's own when it stops)
+    steps = [e.time_range for e in prof.events()
+             if e.name == "refine_step" and e.device_type == DeviceType.CPU]
+
+    def in_step(e):
+        return any(r.start <= e.time_range.start <= r.end for r in steps)
+
+    waits = {"in steps": {}, "outside": {}}
+    for e in prof.events():
+        if e.name.startswith("cuda") and ("Memcpy" in e.name
+                                          or "Synchronize" in e.name):
+            side = waits["in steps" if in_step(e) else "outside"]
+            side[e.name] = side.get(e.name, 0) + 1
+    dtoh = sum(e.count for e in kernels_ if "DtoH" in e.key) / n
+    print(f"  {n} steps: {dtoh * n:.0f} device-to-host copies; runtime "
+          f"copies and synchronisations {json.dumps(waits)}")
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def sass_loop_counts(lib_path):
+    """Opcode counts in the backward kernel's innermost loop (the span of a
+    backward branch that holds MUFU.EX2), from `cuobjdump -sass`. A
+    diagnostic: returns the reason instead where the tool or the loop is
+    not found."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib_path)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as err:
+        return f"not counted: {err}"
+    body = next((f for f in re.split(r"\n\s*Function : ", sass)[1:]
+                 if "raster_bwd_kernel" in f.split("\n", 1)[0]), "")
+    insts = []
+    for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
+        op = re.sub(r"^@!?U?P\w+\s+", "", text.strip())
+        insts.append((int(addr, 16), op.split()[0] if op else "", op))
+    spans = []
+    for a, op, text in insts:
+        hit = re.search(r"BRA\S*\s+(?:\S+,\s*)?0x([0-9a-f]+)", text)
+        if op.startswith("BRA") and hit and int(hit.group(1), 16) < a:
+            ops = [o for b, o, _ in insts if int(hit.group(1), 16) <= b <= a]
+            if "MUFU.EX2" in ops:
+                spans.append(ops)
+    if not spans:
+        return "not counted: no loop with MUFU.EX2 in raster_bwd_kernel"
+    ops = min(spans, key=len)
+    return {"instructions": len(ops),
+            "LDS": sum(o.startswith("LDS") for o in ops),
+            "LDS.128": sum(o.startswith("LDS") and o.endswith(".128")
+                           for o in ops),
+            **{o: ops.count(o) for o in ("MUFU.EX2", "MUFU.RCP", "MUFU.LG2")}}
+
+
+def chunk_stats(counts) -> str:
+    """Active chunks per (scene, tile): how unequal one block per tile
+    was, and how many equal work items the lists make."""
+    c = counts.flatten().float()
+    return (f"active chunks per tile min {int(c.min())} mean "
+            f"{float(c.mean()):.3f} max {int(c.max())}, empty tiles "
+            f"{int((c == 0).sum())} of {c.numel()}, work items "
+            f"{int(c.sum())}")
+
+
+def bound(ops, byts):
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = byts / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def times_phase(packed96, packed256, rcfg96, rcfg256, device):
+    """Kernel times (CUDA events) at the main path's shapes, beside their
+    plain versions and bounds."""
+    with phase("times"):
+        print(f"  96 px, 8 rooms: {chunk_stats(packed96[2])}")
+        print(f"  256 px, 1 room: {chunk_stats(packed256[2])}")
+        gen = torch.Generator(device).manual_seed(1)
+
+        def bwd_inputs(packed, rcfg, S):
+            consts = (S, rcfg.sigma_px, rcfg.gamma, rcfg.z_far)
+            depth, classes, res = rc.raster_fwd_plain(*packed, *consts)
+            gd = torch.randn(depth.shape, generator=gen, device=device)
+            gc = torch.randn(classes.shape, generator=gen, device=device)
+            return (*packed, res, classes, gd, gc, *consts), consts, depth
+
+        args96, consts, depth = bwd_inputs(packed96, rcfg96, 96)
+        fdata, onehot, counts, clist, res, classes, gd, gc = args96[:8]
+        C = onehot.shape[-1]
+        pairs = int(counts.sum()) * rc.PT * rc.FC
+        fwd_ms = event_ms(lambda: rc.raster_fwd_cuda(*packed96, *consts),
+                          50, 5)
+        bwd_ms = event_ms(lambda: rc.raster_bwd_cuda(*args96), 50, 5)
+        fwd_plain = event_ms(lambda: rc.raster_fwd_plain(*packed96,
+                                                         *consts), 5, 1)
+        bwd_plain = event_ms(lambda: rc.raster_bwd_plain(*args96), 5, 1)
+        args256 = bwd_inputs(packed256, rcfg256, 256)[0]
+        bwd256_ms = event_ms(lambda: rc.raster_bwd_cuda(*args256), 50, 5)
+        pairs256 = int(packed256[2].sum()) * rc.PT * rc.FC
+
+        fwd_bound = bound(
+            pairs * (FWD_OPS_PER_PAIR[0] + FWD_OPS_PER_PAIR[1] * C),
+            nbytes(*packed96, depth, classes, res))
+        bwd_bound = bound(
+            pairs * (BWD_OPS_PER_PAIR[0] + BWD_OPS_PER_PAIR[1] * C),
+            nbytes(*packed96, res, classes, gd, gc, fdata))
+        bwd256_bound = bound(
+            pairs256 * (BWD_OPS_PER_PAIR[0] + BWD_OPS_PER_PAIR[1] * C),
+            nbytes(*args256[:8], args256[0]))
+        print(f"  96 px, 8 rooms: {pairs} active (pixel, face) pairs of "
+              f"{8 * 96 * 96 * fdata.shape[-1]}")
+        print(f"  fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
+              f"bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+        print(f"  bwd kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
+              f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+        print(f"  256 px, 1 room: bwd kernel {bwd256_ms:.4f} ms, bound "
+              f"{bwd256_bound[0]:.4f} ms ({bwd256_bound[1]}), {pairs256} "
+              "active pairs")
+        print("  library_ms: none; no single PyTorch call computes the "
+              "soft rasterizer")
+    return fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run the device, build, kernels and times phases")
+    args = ap.parse_args()
     tmp = tempfile.mkdtemp(prefix="sln_chip_smoke_")
     try:
-        run(tmp)
+        run(tmp, args.kernels_only)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run(tmp: str) -> None:
+def run(tmp: str, kernels_only: bool = False) -> None:
     with phase("device"):
         if not torch.cuda.is_available():
             raise RuntimeError("torch.cuda.is_available() is False: "
@@ -237,6 +377,11 @@ def run(tmp: str) -> None:
         for line in kernels.last_build_log.splitlines():
             if "registers" in line or "spill" in line or "Function" in line:
                 print(f"  {line.strip()}")
+        info = kernels.bwd_launch_info()
+        print(f"  bwd kernel: {info}; resident warps per SM "
+              f"{info['blocks_per_sm'] * info['threads'] // 32}")
+        print(f"  bwd inner loop (SASS): "
+              f"{json.dumps(sass_loop_counts(kernels.library_path()))}")
 
     cfg = default_config().replace(train=CHECKPOINT)
     rcfg96 = refine.refine_render_config(cfg)
@@ -255,9 +400,9 @@ def run(tmp: str) -> None:
         packed96 = packed_scene(batch8, midx8, bank, rcfg96)
         errs = [compare_kernels("96px_8rooms", packed96, 96, rcfg96, gen)]
         one = batch8.select([0])
-        errs.append(compare_kernels(
-            "256px_1room", packed_scene(one, midx8[:1], bank, rcfg256), 256,
-            rcfg256, gen))
+        packed256 = packed_scene(one, midx8[:1], bank, rcfg256)
+        errs.append(compare_kernels("256px_1room", packed256, 256, rcfg256,
+                                    gen))
         # scene 1 has no valid face: each of its tiles has an empty list
         edge = packed_scene(batch8.select([0, 1]), midx8[:2], bank, rcfg96,
                             drop_scene=1)
@@ -267,6 +412,10 @@ def run(tmp: str) -> None:
                                     gen))
         err_fwd = max(e[0] for e in errs)
         err_bwd = max(e[1] for e in errs)
+
+    if kernels_only:
+        times_phase(packed96, packed256, rcfg96, rcfg256, device)
+        return
 
     launches = {"fwd": 0, "bwd": 0}
 
@@ -366,44 +515,8 @@ def run(tmp: str) -> None:
                                  "1e-3")
         print(f"  card vs CPU, 2 iterations 1 room 96px: {card} vs {cpu}")
 
-    with phase("times"):
-        S, consts = 96, (96, rcfg96.sigma_px, rcfg96.gamma, rcfg96.z_far)
-        fdata, onehot, counts, clist = packed96
-        depth, classes, res = rc.raster_fwd_plain(*packed96, *consts)
-        gen = torch.Generator(device).manual_seed(1)
-        gd = torch.randn(depth.shape, generator=gen, device=device)
-        gc = torch.randn(classes.shape, generator=gen, device=device)
-        C = onehot.shape[-1]
-        pairs = int(counts.sum()) * rc.PT * rc.FC
-        fwd_ms = event_ms(lambda: rc.raster_fwd_cuda(*packed96, *consts),
-                          50, 5)
-        bwd_ms = event_ms(lambda: rc.raster_bwd_cuda(
-            *packed96, res, classes, gd, gc, *consts), 50, 5)
-        fwd_plain = event_ms(lambda: rc.raster_fwd_plain(*packed96,
-                                                         *consts), 5, 1)
-        bwd_plain = event_ms(lambda: rc.raster_bwd_plain(
-            *packed96, res, classes, gd, gc, *consts), 5, 1)
-
-        def bound(ops, byts):
-            t_ops = ops / PEAK_FP32_FLOPS * 1e3
-            t_bytes = byts / PEAK_BYTES_PER_S * 1e3
-            return (max(t_ops, t_bytes),
-                    "operations" if t_ops >= t_bytes else "bytes")
-
-        fwd_bound = bound(
-            pairs * (FWD_OPS_PER_PAIR[0] + FWD_OPS_PER_PAIR[1] * C),
-            nbytes(*packed96, depth, classes, res))
-        bwd_bound = bound(
-            pairs * (BWD_OPS_PER_PAIR[0] + BWD_OPS_PER_PAIR[1] * C),
-            nbytes(*packed96, res, classes, gd, gc, fdata))
-        print(f"  96 px, 8 rooms: {pairs} active (pixel, face) pairs of "
-              f"{8 * S * S * fdata.shape[-1]}")
-        print(f"  fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
-              f"bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
-        print(f"  bwd kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
-              f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
-        print("  library_ms: none; no single PyTorch call computes the "
-              "soft rasterizer")
+    fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
+        times_phase(packed96, packed256, rcfg96, rcfg256, device)
 
     with phase("profile"):
         profile_steps(refiners["serving 8 rooms 96px"], 3)

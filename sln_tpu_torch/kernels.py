@@ -88,6 +88,8 @@ def load() -> ctypes.CDLL:
     lib.sln_raster_fwd.restype = i
     lib.sln_raster_bwd.argtypes = [p] * 9 + [i] * 6 + [f] * 3 + [p]
     lib.sln_raster_bwd.restype = i
+    lib.sln_raster_bwd_info.argtypes = [p]
+    lib.sln_raster_bwd_info.restype = i
     lib.sln_error_string.argtypes = [i]
     lib.sln_error_string.restype = ctypes.c_char_p
     lib.sln_tile_pixels.argtypes = []
@@ -108,3 +110,15 @@ def load() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load().sln_error_string(err).decode()
+
+
+def bwd_launch_info() -> dict:
+    """The backward kernel's resources and resident blocks per SM on the
+    current card, as the CUDA runtime reports them."""
+    info = (ctypes.c_int * 6)()
+    err = load().sln_raster_bwd_info(info)
+    if err:
+        raise RuntimeError(f"sln_raster_bwd_info: {error_string(err)}")
+    keys = ("sms", "blocks_per_sm", "registers", "spill_bytes",
+            "shared_bytes", "threads")
+    return dict(zip(keys, info))

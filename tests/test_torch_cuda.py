@@ -58,6 +58,33 @@ def test_kernels_match_plain_versions(card):
     assert (tc.FWD_LAUNCHES - f0, tc.BWD_LAUNCHES - b0) == (1, 1)
 
 
+def test_bwd_kernel_on_skewed_chunk_lists(card):
+    """Work items as unequal as lists get: one tile with every chunk
+    active, most tiles empty, B = 8 with one scene empty. Kernel and plain
+    version skip the same chunks, so they compute the same function."""
+    B = 8
+    v2d, z, valid, cls = scenes(card, n=600, B=B, seed=2)
+    fdata, onehot, _, clist = tc.prepare_faces(
+        tr.face_geometry(v2d, z, valid, cls), C, S)
+    _, T, K = clist.shape
+    mask = torch.zeros(B, T, K, dtype=torch.bool, device=card)
+    mask[0, 3] = True                   # every chunk of one tile
+    for b in range(1, B):
+        mask[b, b % T, b % K] = True    # one chunk of one tile
+    mask[5] = False                     # one empty scene
+    counts, clist = tc.chunk_lists(mask)
+    packed = (fdata, onehot, counts, clist)
+    _, c_p, r_p = tc.raster_fwd_plain(*packed, *CONSTS)
+    gen = torch.Generator(card).manual_seed(3)
+    gd = torch.randn(B, S * S, 1, generator=gen, device=card)
+    gc = torch.randn(c_p.shape, generator=gen, device=card)
+    g_k = tc.raster_bwd_cuda(*packed, r_p, c_p, gd, gc, *CONSTS)
+    g_p = tc.raster_bwd_plain(*packed, r_p, c_p, gd, gc, *CONSTS)
+    assert bool(torch.isfinite(g_k).all()) and bool((g_k[5] == 0).all())
+    scale = max(float(g_p.abs().max()), 1e-3)
+    torch.testing.assert_close(g_k, g_p, rtol=2e-3, atol=2e-3 * scale)
+
+
 def test_card_path_matches_cpu_path_with_vertex_grads(card):
     grads = []
     for dev in (card, torch.device("cpu")):
