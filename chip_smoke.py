@@ -8,13 +8,15 @@ Phases, each printing a line as it ends:
   1. device   the card must be there (else this exits non-zero); prints
               nvidia-smi's name and power limit
   2. build    nvcc builds the CUDA kernels from sln_tpu_torch/csrc; prints
-              registers and spills (ptxas), the backward's resident blocks
+              registers and spills (ptxas), each kernel's resident blocks
               and warps per SM, and the opcodes of its inner loop
               (cuobjdump -sass; printed where found, never a failure)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes: 8 synthetic rooms (seed 3) at
               96 px, one room at 256 px, and a scene whose faces are all
-              invalid (every tile's chunk list is empty)
+              invalid (every tile's chunk list is empty); the backward
+              takes the forward kernel's residuals, and the forward run
+              twice on the same inputs must give the same bits
   4. main     the render-and-refine path through the port's entry points:
               `python -m sln_tpu_torch.test --fine_tune` (one room, 96 px,
               60 iterations, the committed checkpoint), the batched serving
@@ -23,8 +25,9 @@ Phases, each printing a line as it ends:
               on the card agree with the same iterations on the CPU
   5. times    active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
-              8-room shapes and the backward's at 256 px (CUDA events),
-              beside each kernel's bound
+              8-room shapes and both kernels' at 256 px (CUDA events),
+              beside each kernel's bound; the forward's device time split
+              between its item and merge kernels (torch.profiler)
   6. profile  torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
@@ -63,13 +66,19 @@ from sln_tpu_torch.workloads import common, refine
 CHECKPOINT = TrainConfig(output_dir="artifacts", checkpoint_name="bench")
 ITERS = 60
 ITERS_256 = 5
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # operations per active (pixel, face) pair, counted from
 # sln_tpu_torch/csrc/soft_raster.cu (FMA = 2; each add, mul, min/max,
 # comparison, select, division and transcendental = 1); C = classes
-FWD_OPS_PER_PAIR = (67, 2)      # 67 + 2*C
+FWD_OPS_PER_PAIR = (67, 2)      # 67 + 2*C, all counted at the fp32 peak
+# the forward's class sum W @ onehot runs on the tensor cores as two TF32
+# products (W = W_hi + W_lo): 2 x 2C operations per pair at the TF32 peak,
+# the other 67 at the fp32 peak
+FWD_MMA_OPS_PER_PAIR = 4        # x C
 BWD_OPS_PER_PAIR = (166, 2)     # 166 + 2*C
 TOL = {"depth": (1e-4, 1e-3), "classes": (1e-4, 1e-4),
        "res": (1e-3, 1e-3)}     # (rtol, atol)
@@ -135,6 +144,11 @@ def compare_kernels(case, packed, S, rcfg, gen):
     """Kernel vs plain version on the card; returns (fwd err, bwd err)."""
     consts = (S, rcfg.sigma_px, rcfg.gamma, rcfg.z_far)
     fwd_k = rc.raster_fwd_cuda(*packed, *consts)
+    again = rc.raster_fwd_cuda(*packed, *consts)
+    for name, a, b in zip(("depth", "classes", "res"), fwd_k, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{case} fwd {name}: two launches on the "
+                                 "same inputs differ")
     fwd_p = rc.raster_fwd_plain(*packed, *consts)
     for name, k, p in zip(("depth", "classes"), fwd_k, fwd_p):
         check_close(f"{case} fwd {name}", k, p, *TOL[name])
@@ -146,8 +160,9 @@ def compare_kernels(case, packed, S, rcfg, gen):
     B, P, C = fwd_p[1].shape
     gd = torch.randn(B, P, 1, generator=gen, device=gen.device)
     gc = torch.randn(B, P, C, generator=gen, device=gen.device)
-    g_k = rc.raster_bwd_cuda(*packed, fwd_p[2], fwd_p[1], gd, gc, *consts)
-    g_p = rc.raster_bwd_plain(*packed, fwd_p[2], fwd_p[1], gd, gc, *consts)
+    # the backward reads the forward kernel's residuals and classes
+    g_k = rc.raster_bwd_cuda(*packed, fwd_k[2], fwd_k[1], gd, gc, *consts)
+    g_p = rc.raster_bwd_plain(*packed, fwd_k[2], fwd_k[1], gd, gc, *consts)
     scale = max(float(g_p.abs().max()), 1e-3)
     check_close(f"{case} bwd fgrad", g_k, g_p, 2e-3, 2e-3 * scale)
     e_fwd = max(max_err(fwd_k[0], fwd_p[0]), max_err(fwd_k[1], fwd_p[1]))
@@ -157,7 +172,8 @@ def compare_kernels(case, packed, S, rcfg, gen):
           f"active (tile, chunk) pairs={n_active}; max abs err fwd depth "
           f"{max_err(fwd_k[0], fwd_p[0]):.3e} classes "
           f"{max_err(fwd_k[1], fwd_p[1]):.3e}, bwd {e_bwd:.3e} "
-          f"(max |ref| {scale:.3e})", flush=True)
+          f"(max |ref| {scale:.3e}); fwd bitwise equal over 2 launches",
+          flush=True)
     return e_fwd, e_bwd
 
 
@@ -172,6 +188,32 @@ def event_ms(fn, reps: int, warmup: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def dev_us(e) -> float:
+    """A profiler event's own device time, in us."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_split(fn, n: int = 20) -> dict:
+    """Device ms per call of each rasterizer kernel that fn launches
+    (torch.profiler over n calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        hit = re.search(r"raster_\w+_kernel", e.key)
+        if e.device_type == DeviceType.CUDA and hit:
+            split[hit.group(0)] = dev_us(e) / 1e3 / n
+    return split
 
 
 def profile_steps(refiner, n: int) -> None:
@@ -190,10 +232,6 @@ def profile_steps(refiner, n: int) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     # device-side ranges of annotations (refine_step, Optimizer.step#...)
     # share their name with a host event; they span kernels, not add to them
@@ -237,11 +275,10 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def sass_loop_counts(lib_path):
-    """Opcode counts in the backward kernel's innermost loop (the span of a
-    backward branch that holds MUFU.EX2), from `cuobjdump -sass`. A
-    diagnostic: returns the reason instead where the tool or the loop is
-    not found."""
+def sass_loop_counts(lib_path, kernel: str):
+    """Opcode counts in a kernel's innermost loop (the span of a backward
+    branch that holds MUFU.EX2), from `cuobjdump -sass`. A diagnostic:
+    returns the reason instead where the tool or the loop is not found."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([tool, "-sass", str(lib_path)],
@@ -250,7 +287,7 @@ def sass_loop_counts(lib_path):
     except (OSError, subprocess.SubprocessError) as err:
         return f"not counted: {err}"
     body = next((f for f in re.split(r"\n\s*Function : ", sass)[1:]
-                 if "raster_bwd_kernel" in f.split("\n", 1)[0]), "")
+                 if kernel in f.split("\n", 1)[0]), "")
     insts = []
     for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
         op = re.sub(r"^@!?U?P\w+\s+", "", text.strip())
@@ -263,12 +300,14 @@ def sass_loop_counts(lib_path):
             if "MUFU.EX2" in ops:
                 spans.append(ops)
     if not spans:
-        return "not counted: no loop with MUFU.EX2 in raster_bwd_kernel"
+        return f"not counted: no loop with MUFU.EX2 in {kernel}"
     ops = min(spans, key=len)
     return {"instructions": len(ops),
             "LDS": sum(o.startswith("LDS") for o in ops),
             "LDS.128": sum(o.startswith("LDS") and o.endswith(".128")
                            for o in ops),
+            "HMMA": sum(o.startswith("HMMA") for o in ops),
+            "SHFL": sum(o.startswith("SHFL") for o in ops),
             **{o: ops.count(o) for o in ("MUFU.EX2", "MUFU.RCP", "MUFU.LG2")}}
 
 
@@ -282,11 +321,25 @@ def chunk_stats(counts) -> str:
             f"{int(c.sum())}")
 
 
-def bound(ops, byts):
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+def bound(ops, byts, mma_ops=0):
+    """(ms, what bounds it): fp32 operations at the fp32 peak plus
+    tensor-core operations at the TF32 peak, against the bytes at the
+    memory rate."""
+    t_ops = (ops / PEAK_FP32_FLOPS + mma_ops / PEAK_TF32_FLOPS) * 1e3
     t_bytes = byts / PEAK_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def fwd_bounds(packed, outs):
+    """The forward's bound with every operation at the fp32 peak, and
+    recounted with its class product at the TF32 tensor-core peak."""
+    C = packed[1].shape[-1]
+    pairs = int(packed[2].sum()) * rc.PT * rc.FC
+    byts = nbytes(*packed, *outs)
+    a, b = FWD_OPS_PER_PAIR
+    return (bound(pairs * (a + b * C), byts),
+            bound(pairs * a, byts, pairs * FWD_MMA_OPS_PER_PAIR * C))
 
 
 def times_phase(packed96, packed256, rcfg96, rcfg256, device):
@@ -308,19 +361,26 @@ def times_phase(packed96, packed256, rcfg96, rcfg256, device):
         fdata, onehot, counts, clist, res, classes, gd, gc = args96[:8]
         C = onehot.shape[-1]
         pairs = int(counts.sum()) * rc.PT * rc.FC
-        fwd_ms = event_ms(lambda: rc.raster_fwd_cuda(*packed96, *consts),
-                          50, 5)
+        args256, consts256, depth256 = bwd_inputs(packed256, rcfg256, 256)
+        pairs256 = int(packed256[2].sum()) * rc.PT * rc.FC
+
+        def fwd96():
+            return rc.raster_fwd_cuda(*packed96, *consts)
+
+        def fwd256():
+            return rc.raster_fwd_cuda(*packed256, *consts256)
+
+        fwd_ms = event_ms(fwd96, 50, 5)
+        fwd256_ms = event_ms(fwd256, 50, 5)
         bwd_ms = event_ms(lambda: rc.raster_bwd_cuda(*args96), 50, 5)
+        bwd256_ms = event_ms(lambda: rc.raster_bwd_cuda(*args256), 50, 5)
         fwd_plain = event_ms(lambda: rc.raster_fwd_plain(*packed96,
                                                          *consts), 5, 1)
         bwd_plain = event_ms(lambda: rc.raster_bwd_plain(*args96), 5, 1)
-        args256 = bwd_inputs(packed256, rcfg256, 256)[0]
-        bwd256_ms = event_ms(lambda: rc.raster_bwd_cuda(*args256), 50, 5)
-        pairs256 = int(packed256[2].sum()) * rc.PT * rc.FC
 
-        fwd_bound = bound(
-            pairs * (FWD_OPS_PER_PAIR[0] + FWD_OPS_PER_PAIR[1] * C),
-            nbytes(*packed96, depth, classes, res))
+        fwd_fp32, fwd_bound = fwd_bounds(packed96, (depth, classes, res))
+        fwd256_fp32, fwd256_bound = fwd_bounds(
+            packed256, (depth256, args256[5], args256[4]))
         bwd_bound = bound(
             pairs * (BWD_OPS_PER_PAIR[0] + BWD_OPS_PER_PAIR[1] * C),
             nbytes(*packed96, res, classes, gd, gc, fdata))
@@ -330,12 +390,23 @@ def times_phase(packed96, packed256, rcfg96, rcfg256, device):
         print(f"  96 px, 8 rooms: {pairs} active (pixel, face) pairs of "
               f"{8 * 96 * 96 * fdata.shape[-1]}")
         print(f"  fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, "
-              f"bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+              f"bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}; class product "
+              f"at the TF32 peak), all-fp32 bound {fwd_fp32[0]:.4f} ms")
         print(f"  bwd kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
               f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
-        print(f"  256 px, 1 room: bwd kernel {bwd256_ms:.4f} ms, bound "
-              f"{bwd256_bound[0]:.4f} ms ({bwd256_bound[1]}), {pairs256} "
-              "active pairs")
+        print(f"  256 px, 1 room: {pairs256} active pairs; fwd kernel "
+              f"{fwd256_ms:.4f} ms, bound {fwd256_bound[0]:.4f} ms "
+              f"({fwd256_bound[1]}), all-fp32 bound {fwd256_fp32[0]:.4f} ms; "
+              f"bwd kernel {bwd256_ms:.4f} ms, bound {bwd256_bound[0]:.4f} "
+              f"ms ({bwd256_bound[1]})")
+        for name, fn in (("96 px, 8 rooms", fwd96), ("256 px, 1 room",
+                                                     fwd256)):
+            split = kernel_split(fn)
+            total = sum(split.values())
+            merge = sum(v for k, v in split.items() if "merge" in k)
+            print(f"  fwd device ms per call, {name}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + f"; merge share {merge / max(total, 1e-12):.3f}")
         print("  library_ms: none; no single PyTorch call computes the "
               "soft rasterizer")
     return fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound
@@ -377,11 +448,14 @@ def run(tmp: str, kernels_only: bool = False) -> None:
         for line in kernels.last_build_log.splitlines():
             if "registers" in line or "spill" in line or "Function" in line:
                 print(f"  {line.strip()}")
-        info = kernels.bwd_launch_info()
-        print(f"  bwd kernel: {info}; resident warps per SM "
-              f"{info['blocks_per_sm'] * info['threads'] // 32}")
-        print(f"  bwd inner loop (SASS): "
-              f"{json.dumps(sass_loop_counts(kernels.library_path()))}")
+        for name, info, kernel in (
+                ("fwd item", kernels.fwd_launch_info(),
+                 "raster_fwd_item_kernel"),
+                ("bwd", kernels.bwd_launch_info(), "raster_bwd_kernel")):
+            print(f"  {name} kernel: {info}; resident warps per SM "
+                  f"{info['blocks_per_sm'] * info['threads'] // 32}")
+            counts_ = sass_loop_counts(kernels.library_path(), kernel)
+            print(f"  {name} inner loop (SASS): {json.dumps(counts_)}")
 
     cfg = default_config().replace(train=CHECKPOINT)
     rcfg96 = refine.refine_render_config(cfg)

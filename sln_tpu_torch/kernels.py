@@ -84,12 +84,13 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sln_raster_fwd.argtypes = [p] * 7 + [i] * 6 + [f] * 3 + [p]
+    lib.sln_raster_fwd.argtypes = [p] * 8 + [i] * 6 + [f] * 3 + [p]
     lib.sln_raster_fwd.restype = i
     lib.sln_raster_bwd.argtypes = [p] * 9 + [i] * 6 + [f] * 3 + [p]
     lib.sln_raster_bwd.restype = i
-    lib.sln_raster_bwd_info.argtypes = [p]
-    lib.sln_raster_bwd_info.restype = i
+    for info in (lib.sln_raster_fwd_info, lib.sln_raster_bwd_info):
+        info.argtypes = [p]
+        info.restype = i
     lib.sln_error_string.argtypes = [i]
     lib.sln_error_string.restype = ctypes.c_char_p
     lib.sln_tile_pixels.argtypes = []
@@ -112,13 +113,23 @@ def error_string(err: int) -> str:
     return load().sln_error_string(err).decode()
 
 
-def bwd_launch_info() -> dict:
-    """The backward kernel's resources and resident blocks per SM on the
-    current card, as the CUDA runtime reports them."""
+def _launch_info(kernel: str) -> dict:
     info = (ctypes.c_int * 6)()
-    err = load().sln_raster_bwd_info(info)
+    err = getattr(load(), f"sln_raster_{kernel}_info")(info)
     if err:
-        raise RuntimeError(f"sln_raster_bwd_info: {error_string(err)}")
+        raise RuntimeError(f"sln_raster_{kernel}_info: {error_string(err)}")
     keys = ("sms", "blocks_per_sm", "registers", "spill_bytes",
             "shared_bytes", "threads")
     return dict(zip(keys, info))
+
+
+def fwd_launch_info() -> dict:
+    """The forward's item kernel's resources and resident blocks per SM on
+    the current card, as the CUDA runtime reports them."""
+    return _launch_info("fwd")
+
+
+def bwd_launch_info() -> dict:
+    """The backward kernel's resources and resident blocks per SM on the
+    current card, as the CUDA runtime reports them."""
+    return _launch_info("bwd")

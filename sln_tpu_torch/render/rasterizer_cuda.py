@@ -364,7 +364,8 @@ def _raise_on(err: int, what: str) -> None:
 
 def raster_fwd_cuda(fdata, onehot, counts, clist, image_size: int,
                     sigma: float, gamma: float, z_far: float):
-    """Launch the forward kernel; outputs as raster_fwd_plain."""
+    """Launch the forward (its item kernel, then its merge kernel); outputs
+    as raster_fwd_plain."""
     global FWD_LAUNCHES
     from sln_tpu_torch import kernels
 
@@ -375,12 +376,16 @@ def raster_fwd_cuda(fdata, onehot, counts, clist, image_size: int,
     depth = torch.empty(B, P, 1, **kw)
     classes = torch.empty(B, P, C, **kw)
     res = torch.empty(B, P, 4, **kw)
+    # one partial online-softmax state (m, s, sum w*z, sum log(1 - cov),
+    # C class sums) per pixel of every chunk slot; the kernels touch the
+    # active slots only
+    scratch = torch.empty(B * T * K * (4 + C) * PT, **kw)
     with torch.cuda.device(fdata.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sln_raster_fwd(
             _ptr(fdata), _ptr(onehot), _ptr(counts), _ptr(clist),
-            _ptr(depth), _ptr(classes), _ptr(res), B, T, K, Fp, C,
-            image_size, 1.0 / sigma, 1.0 / gamma, z_far,
+            _ptr(depth), _ptr(classes), _ptr(res), _ptr(scratch), B, T, K,
+            Fp, C, image_size, 1.0 / sigma, 1.0 / gamma, z_far,
             ctypes.c_void_p(stream))
     _raise_on(err, "sln_raster_fwd")
     FWD_LAUNCHES += 1

@@ -39,6 +39,13 @@ def checkpoint_path(output_dir: str, name: str) -> str:
     return os.path.join(output_dir, f"latest_{name}_with_model.ckpt")
 
 
+def reference_pt_path(output_dir: str, name: str) -> str:
+    """Where a checkpoint of the reference PyTorch trainer sits
+    (latest_<name>_with_model.pt; the JAX package's
+    train/checkpoint.py reference_pt_path)."""
+    return os.path.join(output_dir, f"latest_{name}_with_model.pt")
+
+
 def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """A JAX `.ckpt` (a pickle of numpy trees, written by this project's
     trainer) -> Sg2ScVAE state_dict."""
@@ -49,15 +56,25 @@ def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 def restore_model(cfg: Config, device, allow_random: bool = False
                   ) -> Sg2ScVAE:
-    """Sg2ScVAE in eval mode with the latest checkpoint's weights, or
-    seeded random weights when there is none and allow_random is set."""
-    path = checkpoint_path(cfg.train.output_dir, cfg.train.checkpoint_name)
+    """Sg2ScVAE in eval mode with the latest checkpoint's weights: the
+    trainer's `.ckpt`, else a reference-trained `.pt` in the same
+    directory (its state_dict loads as it is, strictly), else seeded
+    random weights when allow_random is set."""
+    train = cfg.train
+    path = checkpoint_path(train.output_dir, train.checkpoint_name)
+    pt_path = reference_pt_path(train.output_dir, train.checkpoint_name)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = Sg2ScVAE(cfg.model)
     if os.path.isfile(path):
         model.load_state_dict(load_jax_checkpoint(path))
         print(f"Restored checkpoint from {path}")
+    elif os.path.isfile(pt_path):
+        # the reference checkpoint pickles its args and vocab beside the
+        # weights, so it needs the full unpickler
+        ckpt = torch.load(pt_path, map_location="cpu", weights_only=False)
+        model.load_state_dict(ckpt["model_state"], strict=True)
+        print(f"Restored checkpoint from {pt_path}")
     elif allow_random:
         print(f"WARNING: no checkpoint at {path}; using random weights")
     else:

@@ -228,10 +228,21 @@ class Refiner:
             self.tg_pyr = target_pyramids(target_img, ref.pyramid_sizes)
         self.z = z0.detach().clone().requires_grad_(True)
         self.opt = refine_optimizer(self.z, model.parameters(), cfg)
+        self.k = 0              # steps taken
+        self.noises: List[torch.Tensor] = []
 
     def draw_noise(self) -> torch.Tensor:
         return angle_noise(self.batch.objs.shape, self.ref.angle_noise_scale,
                            self.generator, self.z.device)
+
+    def noise(self, k: int) -> torch.Tensor:
+        """Step k's angle noise. The generator is drawn in step order
+        only, once per step, so reading a step's noise ahead of the step
+        (a snapshot) moves no step's noise (the JAX package splits its
+        keys once and reuses keys[k])."""
+        while len(self.noises) <= k:
+            self.noises.append(self.draw_noise())
+        return self.noises[k]
 
     def forward(self, noise: torch.Tensor):
         """(total, aux dict, imgs (B, 70, S, S), boxes_pred, angles)."""
@@ -273,9 +284,11 @@ class Refiner:
 
     def step(self, noise: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        """One optimization step; returns the step's detached losses."""
+        """One optimization step, with step k's noise unless one is given;
+        returns the step's detached losses."""
         if noise is None:
-            noise = self.draw_noise()
+            noise = self.noise(self.k)
+        self.k += 1
         self.opt.zero_grad(set_to_none=True)
         total, aux, *_ = self.forward(noise)
         total.backward()
@@ -289,9 +302,10 @@ class Refiner:
         return {k: torch.stack([h[k] for h in hist]) for k in hist[0]}
 
     @torch.no_grad()
-    def snapshot(self):
-        """Full render + layout for artifact dumps (not in the loop)."""
-        _, aux, imgs, boxes_pred, ang = self.forward(self.draw_noise())
+    def snapshot(self, k: int = 0):
+        """Full render + layout for artifact dumps (not in the loop), with
+        step k's noise."""
+        _, aux, imgs, boxes_pred, ang = self.forward(self.noise(k))
         return aux, imgs, boxes_pred, ang
 
 
@@ -408,7 +422,7 @@ def finetune_rooms(model: Sg2ScVAE, val_arrays, size_info: SizeInfo,
                                    cfg, z0)
 
         def dump(k):
-            _, _, boxes_pred, ang = refiner.snapshot()
+            _, _, boxes_pred, ang = refiner.snapshot(min(k, num_iters - 1))
             with open(os.path.join(save_dir, f"bbox_rot_{k}.pkl"),
                       "wb") as f:
                 pickle.dump([room_id, _np(boxes_pred[0]), _np(ang[0]),

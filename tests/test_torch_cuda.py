@@ -85,6 +85,36 @@ def test_bwd_kernel_on_skewed_chunk_lists(card):
     torch.testing.assert_close(g_k, g_p, rtol=2e-3, atol=2e-3 * scale)
 
 
+def test_fwd_kernel_on_skewed_chunk_lists(card):
+    """The forward's items and ordered merge on lists as unequal as they
+    get: one tile with every chunk active, tiles with one chunk, most tiles
+    empty, B = 8 with one scene empty. Two launches give the same bits."""
+    B = 8
+    v2d, z, valid, cls = scenes(card, n=600, B=B, seed=4)
+    fdata, onehot, _, clist = tc.prepare_faces(
+        tr.face_geometry(v2d, z, valid, cls), C, S)
+    _, T, K = clist.shape
+    mask = torch.zeros(B, T, K, dtype=torch.bool, device=card)
+    mask[0, 3] = True                   # every chunk of one tile
+    mask[0, 5, 1:3] = True              # two chunks, not from the first
+    for b in range(1, B):
+        mask[b, b % T, b % K] = True    # one chunk of one tile
+    mask[5] = False                     # one empty scene
+    counts, clist = tc.chunk_lists(mask)
+    packed = (fdata, onehot, counts, clist)
+    d_k, c_k, r_k = tc.raster_fwd_cuda(*packed, *CONSTS)
+    d_p, c_p, r_p = tc.raster_fwd_plain(*packed, *CONSTS)
+    torch.testing.assert_close(d_k, d_p, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(c_k, c_p, rtol=1e-4, atol=1e-4)
+    covered = (1.0 - torch.exp(r_p[..., 3])) > 1e-6
+    torch.testing.assert_close(r_k[covered], r_p[covered], rtol=1e-3,
+                               atol=1e-3)
+    assert bool((d_k[5] == CONSTS[-1]).all()) and bool((c_k[5] == 0).all())
+    again = tc.raster_fwd_cuda(*packed, *CONSTS)
+    for a, b in zip((d_k, c_k, r_k), again):
+        assert torch.equal(a, b)
+
+
 def test_card_path_matches_cpu_path_with_vertex_grads(card):
     grads = []
     for dev in (card, torch.device("cpu")):

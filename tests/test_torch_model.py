@@ -230,3 +230,36 @@ def test_reference_torch_checkpoint_loads_directly():
                                rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(ang_t.numpy()[m], np.asarray(ang_j)[m],
                                rtol=2e-4, atol=2e-4)
+
+
+def test_restore_model_falls_back_to_reference_pt():
+    """With no `.ckpt` in output_dir, restore_model takes the reference
+    trainer's latest_<name>_with_model.pt, as the JAX package's does, and
+    the two restored models decode a fixed batch alike."""
+    from sln_tpu import config as jcfg
+    from sln_tpu.workloads import common as jcommon
+    from sln_tpu_torch import config as tcfg
+    from sln_tpu_torch.workloads import common as tcommon
+
+    out = "artifacts/ref_baseline/checkpoints"
+    train_j = jcfg.TrainConfig(output_dir=out, checkpoint_name="checkpoint")
+    train_t = tcfg.TrainConfig(output_dir=out, checkpoint_name="checkpoint")
+    model_t = tcommon.restore_model(
+        tcfg.default_config().replace(train=train_t), "cpu")
+    arrays, table = rooms(n=3)
+    jb = jax_batch(arrays, table)
+    cfg_j = jcfg.default_config().replace(train=train_j)
+    model_j, variables = jcommon.restore_model(cfg_j, jb)
+    z = np.random.default_rng(5).standard_normal(
+        (3, O, cfg_j.model.latent_dim)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        box_j, ang_j = model_j.apply(variables, jnp.asarray(z), jb, False,
+                                     method=JVAE.decode)
+    with torch.no_grad():
+        box_t, ang_t = model_t.decode(torch.as_tensor(z), to_torch_batch(jb))
+    assert not model_t.training
+    m = np.asarray(jb.obj_mask)
+    np.testing.assert_allclose(box_t.numpy()[m], np.asarray(box_j)[m],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ang_t.numpy()[m], np.asarray(ang_j)[m],
+                               rtol=1e-5, atol=1e-5)

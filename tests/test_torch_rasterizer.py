@@ -94,9 +94,21 @@ def test_chunk_lists_prefix_matches_mask():
     assert clist[0, 2].tolist() == [0, 1, 2, 3]
 
 
-@pytest.mark.parametrize("n,seed", [(23, 0), (200, 5)])
-def test_fwd_plain_matches_pallas_interpret(n, seed):
+@pytest.mark.parametrize("n,seed,skew", [
+    pytest.param(23, 0, False, id="23-0"),
+    pytest.param(200, 5, False, id="200-5"),
+    pytest.param(600, 7, False, id="600-7"),
+    pytest.param(600, 8, True, id="600-8-skewed")])
+def test_fwd_plain_matches_pallas_interpret(n, seed, skew):
     _, fdata, onehot, _, counts, clist = jax_packed(random_faces(n, seed))
+    if skew:
+        # tile 0 walks every chunk, tile 1 only the last: lists as unequal
+        # as the kernels' work items see them
+        T, K = np.asarray(clist).shape
+        counts = jnp.asarray([[K]] + [[1]] * (T - 1), jnp.int32)
+        clist = jnp.asarray([list(range(K))]
+                            + [[K - 1] + list(range(K - 1))] * (T - 1),
+                            jnp.int32)
     d_j, c_j, r_j = jp._core_fwd_impl(fdata, onehot, counts, clist, C, S,
                                       SIGMA, GAMMA, ZFAR)
     d_t, c_t, r_t = tc.raster_fwd_plain(*to_t(fdata, onehot, counts, clist),

@@ -4,6 +4,7 @@ gradient hooks, the optimizer, and three refinement iterations of the
 whole slice against the JAX package from the same params, batch, z0 and
 target."""
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -271,3 +272,35 @@ def test_angle_noise_scale(slice_setup):
     want = torch.randn(s["tb"].objs.shape,
                        generator=torch.Generator().manual_seed(7)) * 0.25
     assert torch.equal(noise, want)
+
+
+def test_snapshot_leaves_the_loop_noise_alone(slice_setup):
+    """A snapshot renders with step 0's noise and draws nothing new from
+    the loop's generator, as the JAX package's dump(state, k) reuses
+    keys[k]: run(n)'s losses are bitwise the same with and without a
+    snapshot before it."""
+    s = slice_setup
+    cfg = s["cfg_t"].replace(refine=dataclasses.replace(
+        s["cfg_t"].refine, angle_noise_scale=0.25))
+    tbank, (midx, target, size_t, room) = _port_inputs(s)
+
+    def make():
+        return tref.make_refine_step(
+            copy.deepcopy(s["tmodel"]), s["tb"], midx, tbank, target,
+            size_t, room, cfg, torch.as_tensor(s["z0"]),
+            torch.Generator().manual_seed(7))
+
+    plain = make().run(2)
+    snapped = make()
+    _, _, _, ang = snapped.snapshot()
+    hist = snapped.run(2)
+    for k in plain:
+        assert torch.equal(hist[k], plain[k]), k
+    # the snapshot's angles are the ones step 0 renders with
+    fresh = make()
+    with torch.no_grad():
+        _, _, _, _, ang0 = fresh.forward(tref.angle_noise(
+            s["tb"].objs.shape, 0.25, torch.Generator().manual_seed(7),
+            "cpu"))
+    assert torch.equal(ang, ang0)
+    assert torch.equal(snapped.noise(0), fresh.noise(0))
