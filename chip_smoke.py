@@ -15,20 +15,34 @@ Phases, each printing a line as it ends:
               at the main path's shapes: 8 synthetic rooms (seed 3) at
               96 px, one room at 256 px, and a scene whose faces are all
               invalid (every tile's chunk list is empty); the backward
-              takes the forward kernel's residuals, and the forward run
-              twice on the same inputs must give the same bits
+              takes the forward kernel's residuals; forward and backward,
+              each run twice on the same inputs, must give the same bits
   4. main     the render-and-refine path through the port's entry points:
               `python -m sln_tpu_torch.test --fine_tune` (one room, 96 px,
               60 iterations, the committed checkpoint), the batched serving
               configuration (8 rooms, 96 px, 60 iterations) and one room at
               256 px; launch counts prove both kernels ran; two iterations
-              on the card agree with the same iterations on the CPU
-  5. times    active chunks per tile and work items at 96 px / 8 rooms and
+              on the card agree with the same iterations on the CPU; and
+              the refine is reproducible: one 8-room step run twice from
+              the same state gives the same bits in the loss, z.grad, every
+              parameter's grad and every op's output in between, and a
+              second fine_tune and a second serving run repeat the first
+              ones' loss histories bit for bit
+  5. sampling the sampling and evaluation modes on the card: `--batch_gen`
+              and `--measure_acc_l1_std` through the entry point (64
+              synthetic rooms), the heat map's 20,000 layouts, and the
+              quality cell of bench.py:589-634: a fresh posterior over
+              4,096 synthetic rooms (seed 42), held against the JAX
+              package's artifacts/mean_cov.pkl, then acc / L1 / std on 512
+              val rooms (seed 7) within bands of the JAX package's
+              numbers; the sweep's and the eval's seconds and the
+              sampler's layouts/s (the card's name and power limit beside)
+  6. times    active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
               8-room shapes and both kernels' at 256 px (CUDA events),
-              beside each kernel's bound; the forward's device time split
-              between its item and merge kernels (torch.profiler)
-  6. profile  torch.profiler over three 8-room refine steps: device busy
+              beside each kernel's bound; each kernel's device time split
+              between its launches (torch.profiler)
+  7. profile  torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
@@ -45,6 +59,8 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -60,7 +76,8 @@ from sln_tpu_torch.data.augment import build_graphs
 from sln_tpu_torch.models.vae import reparameterize
 from sln_tpu_torch.render import assets, scene as scene_lib
 from sln_tpu_torch.render import rasterizer_cuda as rc
-from sln_tpu_torch.workloads import common, refine
+from sln_tpu_torch.workloads import acc_l1_std, common, heatmap
+from sln_tpu_torch.workloads import posterior, refine
 
 # artifacts/latest_bench_with_model.ckpt
 CHECKPOINT = TrainConfig(output_dir="artifacts", checkpoint_name="bench")
@@ -82,6 +99,16 @@ FWD_MMA_OPS_PER_PAIR = 4        # x C
 BWD_OPS_PER_PAIR = (166, 2)     # 166 + 2*C
 TOL = {"depth": (1e-4, 1e-3), "classes": (1e-4, 1e-4),
        "res": (1e-3, 1e-3)}     # (rtol, atol)
+# the quality cell (bench.py:589-634) against the JAX package: its cached
+# posterior, and bands around its acc / L1 / std_pos (0.883, 0.1092,
+# 0.0026). The JAX package's own spread on the CPU, recomputing the
+# posterior with another key: 0.0034 (mean) and 0.084 (cov); acc 0.880 to
+# 0.883, L1 0.1091 to 0.1092, std_pos 0.00243 to 0.00250 over three eval
+# seeds; the bands widen that for the port's other draws
+JAX_POSTERIOR = "artifacts/mean_cov.pkl"
+POSTERIOR_BOUNDS = {"mean max abs": 0.01, "cov rel frobenius": 0.2}
+QUALITY_BANDS = {"acc_pred": (0.870, 0.895), "l1_pred": (0.1070, 0.1115),
+                 "std_pos": (0.0021, 0.0029)}
 
 
 @contextlib.contextmanager
@@ -162,6 +189,10 @@ def compare_kernels(case, packed, S, rcfg, gen):
     gc = torch.randn(B, P, C, generator=gen, device=gen.device)
     # the backward reads the forward kernel's residuals and classes
     g_k = rc.raster_bwd_cuda(*packed, fwd_k[2], fwd_k[1], gd, gc, *consts)
+    if not torch.equal(g_k, rc.raster_bwd_cuda(*packed, fwd_k[2], fwd_k[1],
+                                               gd, gc, *consts)):
+        raise AssertionError(f"{case} bwd: two launches on the same inputs "
+                             "differ")
     g_p = rc.raster_bwd_plain(*packed, fwd_k[2], fwd_k[1], gd, gc, *consts)
     scale = max(float(g_p.abs().max()), 1e-3)
     check_close(f"{case} bwd fgrad", g_k, g_p, 2e-3, 2e-3 * scale)
@@ -172,9 +203,80 @@ def compare_kernels(case, packed, S, rcfg, gen):
           f"active (tile, chunk) pairs={n_active}; max abs err fwd depth "
           f"{max_err(fwd_k[0], fwd_p[0]):.3e} classes "
           f"{max_err(fwd_k[1], fwd_p[1]):.3e}, bwd {e_bwd:.3e} "
-          f"(max |ref| {scale:.3e}); fwd bitwise equal over 2 launches",
+          f"(max |ref| {scale:.3e}); fwd and bwd each bitwise equal over 2 "
+          "launches",
           flush=True)
     return e_fwd, e_bwd
+
+
+def bits_checksum(t: torch.Tensor) -> torch.Tensor:
+    """An int64 sum of a tensor's 32-bit words (of its values, for types
+    narrower than 32 bits), on the device: changed bits change it unless
+    their changes cancel."""
+    flat = t.detach().contiguous().reshape(-1)
+    if flat.element_size() in (4, 8):
+        return flat.view(torch.int32).sum(dtype=torch.int64)
+    return flat.to(torch.int64).sum()
+
+
+def op_trace_mode():
+    """A TorchDispatchMode that records every aten op run under it, forward
+    and backward, with a checksum of the bits of each tensor it returns
+    (ops that return uninitialised memory, torch.empty and kin, excepted)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class OpTrace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names, self.sums = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            if "empty" not in name:
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and t.is_cuda:
+                        self.names.append(name)
+                        self.sums.append(bits_checksum(t))
+            return out
+
+    return OpTrace()
+
+
+def step_twice_bitwise(model, batch, inputs, bank, cfg, device) -> None:
+    """One refine step, twice, from the same state with the same noise: the
+    loss, z.grad and every parameter's .grad must be the same bits, and so
+    must every op's output in between; names the first op that differs."""
+    midx, target, size_t, room_row = inputs
+    with torch.no_grad():
+        z0 = model.encode(batch)[0]
+    noise = cfg.refine.angle_noise_scale * torch.randn(
+        batch.objs.shape, device=device,
+        generator=torch.Generator(device).manual_seed(2))
+    runs = []
+    for _ in range(2):
+        r = refine.make_refine_step(copy.deepcopy(model), batch, midx, bank,
+                                    target, size_t, room_row, cfg, z0)
+        with op_trace_mode() as trace:
+            loss = r.step(noise)["total"]
+        torch.cuda.synchronize()
+        grads = [r.z.grad] + [p.grad for p in r.model.parameters()
+                              if p.grad is not None]
+        runs.append((loss, grads, trace))
+    (l1, g1, t1), (l2, g2, t2) = runs
+    if t1.names != t2.names:
+        raise AssertionError("two identical refine steps ran different ops")
+    differ = (torch.stack(t1.sums) != torch.stack(t2.sums)).nonzero()
+    first = t1.names[int(differ[0])] if len(differ) else "none"
+    same = torch.equal(l1, l2) and all(torch.equal(a, b)
+                                       for a, b in zip(g1, g2))
+    print(f"  one refine step twice (B={batch.objs.shape[0]}): loss, z.grad "
+          f"and {len(g1) - 1} parameter grads bitwise "
+          f"{'equal' if same else 'DIFFERENT'}; {len(t1.names)} op outputs "
+          f"compared, {len(differ)} differ, first: {first}", flush=True)
+    if not same or len(differ):
+        raise AssertionError("the refine step is not bitwise reproducible")
 
 
 def event_ms(fn, reps: int, warmup: int) -> float:
@@ -407,9 +509,106 @@ def times_phase(packed96, packed256, rcfg96, rcfg256, device):
             print(f"  fwd device ms per call, {name}: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
                   + f"; merge share {merge / max(total, 1e-12):.3f}")
+        for name, args in (("96 px, 8 rooms", args96), ("256 px, 1 room",
+                                                        args256)):
+            split = kernel_split(lambda: rc.raster_bwd_cuda(*args))
+            total = sum(split.values())
+            after = sum(v for k, v in split.items()
+                        if k != "raster_bwd_kernel")
+            print(f"  bwd device ms per call, {name}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + f"; reduce and combine share "
+                  f"{after / max(total, 1e-12):.3f}")
         print("  library_ms: none; no single PyTorch call computes the "
               "soft rasterizer")
     return fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound
+
+
+def sampling_phase(cfg, tmp: str, device, smi: str) -> dict:
+    """The sampling and evaluation modes on the card; returns the quality
+    cell's numbers and times."""
+    with phase("sampling"):
+        cli = ["--synthetic", "64", "--output_dir", CHECKPOINT.output_dir,
+               "--checkpoint_name", CHECKPOINT.checkpoint_name,
+               "--test_dir", tmp]
+        out = entry.main(["--batch_gen", *cli])
+        for path in (out, os.path.join(tmp, "mean_cov.pkl")):
+            if not os.path.isfile(path):
+                raise AssertionError(f"--batch_gen wrote no {path}")
+        with open(out) as f:
+            n_rooms = len(json.load(f))
+        got = entry.main(["--measure_acc_l1_std", *cli])
+        if not all(np.isfinite(v) for v in got.values()):
+            raise AssertionError(f"--measure_acc_l1_std: {got}")
+        print(f"  --batch_gen: {n_rooms} rooms x 4 layouts; "
+              f"--measure_acc_l1_std (64 rooms): acc_pred "
+              f"{got['acc_pred']:.4f} l1_pred {got['l1_pred']:.4f} std_pos "
+              f"{got['std_pos']:.5f}", flush=True)
+
+        # the quality cell: a fresh posterior (the cached one is only read)
+        model = common.restore_model(cfg, device)
+        train, size_info = common.load_arrays(4096, cfg, device,
+                                              synthetic_seed=42)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, cov = posterior.collect_posterior_stats(model, train,
+                                                      size_info, cfg,
+                                                      device=device)
+        sweep_s = time.perf_counter() - t0
+        os.makedirs(os.path.join(tmp, "quality"))
+        with open(os.path.join(tmp, "quality", "mean_cov.pkl"), "wb") as f:
+            pickle.dump([mean, cov], f)
+        with open(JAX_POSTERIOR, "rb") as f:
+            mean_j, cov_j = (np.asarray(x) for x in pickle.load(f))
+        d_post = {"mean max abs": float(np.abs(mean - mean_j).max()),
+                  "cov rel frobenius": float(np.linalg.norm(cov - cov_j)
+                                             / np.linalg.norm(cov_j))}
+        print(f"  posterior over 4096 rooms vs {JAX_POSTERIOR}: "
+              + ", ".join(f"{k} {v:.5f} (bound {POSTERIOR_BOUNDS[k]})"
+                          for k, v in d_post.items()), flush=True)
+        for k, v in d_post.items():
+            if not v <= POSTERIOR_BOUNDS[k]:
+                raise AssertionError(f"posterior {k} {v} beyond "
+                                     f"{POSTERIOR_BOUNDS[k]}")
+        val, _ = common.load_arrays(512, cfg, device, synthetic_seed=7)
+        t0 = time.perf_counter()
+        q = acc_l1_std.run_acc_l1(model, val, size_info, cfg, mean, cov,
+                                  batch_size=256, device=device)
+        q.update(acc_l1_std.run_std(model, val, size_info, cfg, mean, cov,
+                                    nsample=10, batch_size=256,
+                                    device=device))
+        eval_s = time.perf_counter() - t0
+        print("  quality (512 val rooms, seed 7, nsample 10): "
+              + " ".join(f"{k} {q[k]:.5f}" for k in (
+                  "acc_pred", "acc_rand", "acc_pert", "l1_pred", "l1_rand",
+                  "l1_pert", "std_angle", "std_pos", "std_size"))
+              + f"; {q['total_triples']} triples", flush=True)
+        for k, (lo, hi) in QUALITY_BANDS.items():
+            if not lo <= q[k] <= hi:
+                raise AssertionError(f"{k} {q[k]} outside [{lo}, {hi}]")
+
+        # the heat map's layouts and the sampler's rate (bench.py:642-700)
+        pkl = heatmap.produce_heatmap(model, mean, cov, tmp, device=device)
+        with open(pkl, "rb") as f:
+            boxes = pickle.load(f)[2]
+        # the default graph's 5 objects and its __room__ node
+        if boxes.shape != (20000, 6, 6) or not np.isfinite(boxes).all():
+            raise AssertionError(f"heat map boxes {boxes.shape}")
+        batch = heatmap.heatmap_scene_batch(4096, 8, 24, device=device)
+        sample = heatmap.make_sampler(model, batch, mean, cov)
+        gen = torch.Generator(device).manual_seed(0)
+        shape = (4096, 8, len(mean))
+        ms = event_ms(lambda: sample(torch.randn(shape, generator=gen,
+                                                 device=device)), 40, 5)
+        rate = 4096 / (ms / 1e3)
+        print(f"  heat map: {boxes.shape[0]} layouts of "
+              f"{boxes.shape[1]} boxes; sampler {ms:.4f} ms per batch of "
+              f"4096 (CUDA events, 40 calls) = {rate:.0f} layouts/s")
+        print(f"  posterior sweep {sweep_s:.2f} s (4096 rooms), eval "
+              f"{eval_s:.2f} s (512 rooms), sampler {rate:.0f} layouts/s, "
+              f"on {smi}", flush=True)
+    return {**q, "posterior": d_post, "posterior_sweep_s": sweep_s,
+            "eval_s": eval_s, "sampler_layouts_per_s": rate}
 
 
 def main() -> None:
@@ -529,6 +728,7 @@ def run(tmp: str, kernels_only: bool = False) -> None:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / iters
         check_losses(name, hist["total"].cpu())
+        histories[name] = hist["total"]
         _, imgs, _, _ = refiner.snapshot()
         S = cfg_run.refine.render_size
         if imgs.shape != (batch.objs.shape[0], 70, S, S) or not bool(
@@ -540,14 +740,18 @@ def run(tmp: str, kernels_only: bool = False) -> None:
         refiners[name] = refiner
         return ms
 
-    step_ms, refiners = {}, {}
-    with phase("main"):
-        t0 = time.perf_counter()
-        hist = counted("fine_tune 1 room 96px", lambda: entry.main([
+    step_ms, refiners, histories = {}, {}, {}
+
+    def fine_tune():
+        return entry.main([
             "--fine_tune", "--synthetic", "32",
             "--output_dir", CHECKPOINT.output_dir,
             "--checkpoint_name", CHECKPOINT.checkpoint_name,
-            "--test_dir", tmp]), ITERS)
+            "--test_dir", tmp])
+
+    with phase("main"):
+        t0 = time.perf_counter()
+        hist = counted("fine_tune 1 room 96px", fine_tune, ITERS)
         for room, losses in hist.items():
             check_losses(f"fine_tune room {room}",
                          [h["total"] for h in losses])
@@ -589,6 +793,24 @@ def run(tmp: str, kernels_only: bool = False) -> None:
                                  "1e-3")
         print(f"  card vs CPU, 2 iterations 1 room 96px: {card} vs {cpu}")
 
+        # determinism: the same work twice gives the same bits
+        step_twice_bitwise(model, batch8, inputs96, bank, cfg, device)
+        again = counted("fine_tune 1 room 96px, again", fine_tune, ITERS)
+        if again != hist:
+            raise AssertionError("two fine_tune runs gave different loss "
+                                 "histories")
+        counted("serving 8 rooms 96px, again",
+                lambda: timed_refine("serving 8 rooms 96px, again", model,
+                                     batch8, inputs96, cfg, ITERS), ITERS)
+        if not torch.equal(histories["serving 8 rooms 96px"],
+                           histories["serving 8 rooms 96px, again"]):
+            raise AssertionError("two serving runs gave different loss "
+                                 "histories")
+        print(f"  two fine_tunes ({ITERS} iterations) and two 8-room serving"
+              " runs: bitwise-equal loss histories", flush=True)
+
+    quality = sampling_phase(cfg, tmp, device, smi)
+
     fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
 
@@ -608,6 +830,7 @@ def run(tmp: str, kernels_only: bool = False) -> None:
         record("soft_raster_bwd", "sln_tpu/render/rasterizer_pallas.py:194",
                launches["bwd"], err_bwd, bwd_ms, bwd_plain, bwd_bound)]}))
     print(json.dumps({"refine_ms_per_step": step_ms}))
+    print(json.dumps({"sampling": quality}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

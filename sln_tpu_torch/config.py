@@ -1,4 +1,5 @@
-"""Typed configuration: the fields the render-and-refine path reads.
+"""Typed configuration: the fields the render-and-refine path and the
+sampling and evaluation workloads read.
 
 Counterpart of sln_tpu/config.py (ModelConfig, DataConfig, CameraConfig,
 RenderConfig, RefineConfig). `RenderConfig.backend` is gone: the
@@ -64,8 +65,11 @@ class DataConfig:
     """Static-shape padded scene-graph batching."""
 
     max_objects: int = 32      # per scene, includes the __room__ node
+    max_triples: int = 96      # 3 x max_objects, as the root test.py sets
     max_on_rels: int = 32      # cap on 'on' relations packed per scene
     use_attr_30: bool = True
+    train_path: str = "metadata/data_rot_train.json"
+    val_path: str = "metadata/data_rot_val.json"
 
 
 @dataclass(frozen=True)

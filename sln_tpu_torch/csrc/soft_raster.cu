@@ -63,13 +63,19 @@
 // One thread per face: each face's 15 gradient sums stay in registers over
 // the item's pixels.
 //
-// Cross-tile reduction of the backward: the TPU kernel carries fgrad
-// across a sequential grid. Here blocks run in parallel, so each item adds
-// its per-face sums to fgrad with one atomicAdd per (face, row) after the
-// reduction over its 128 pixels in registers. The fp32 summation order
-// over tiles therefore varies from run to run: rounding-level differences,
-// held to the rtol 2e-3 / atol 2e-3*max|ref| gradient tolerance of the JAX
-// package's Pallas parity test.
+// Cross-tile reduction of the backward, in a fixed order: the TPU kernel
+// carries fgrad across a sequential grid. Here blocks run in parallel, so
+// each item writes its per-face sums (15 rows: all but R_SIGN, which stays
+// zero) to a scratch slot of its (scene, tile, chunk slot), as the
+// forward's items leave their partial states. A second kernel,
+// raster_bwd_reduce_kernel, one block per (chunk, scene, range of 64
+// tiles), lists in tile order the slots of its tiles whose lists hold the
+// chunk and adds them in that order (in four contiguous parts, then the
+// parts in order); a third, raster_bwd_combine_kernel, adds a chunk's
+// range sums in order and writes fgrad once (zeros for a face no tile
+// lists). No atomics: fgrad is the same bits from run to run, which makes
+// the refine trajectory reproducible. The atomicAdd it replaced summed the tiles in whatever
+// order the blocks finished (PERF.md).
 //
 // Built by nvcc with a plain C interface (no PyTorch headers) and loaded
 // with ctypes (sln_tpu_torch/kernels.py). Launchers run on the caller's
@@ -85,7 +91,24 @@ namespace {
 constexpr int PT = 128;    // pixels per tile = threads per block
 constexpr int FC = 128;    // faces per chunk
 constexpr int MAXC = 32;   // class accumulator width
-constexpr int R_NX = 0, R_NY = 3, R_C = 6, R_IL = 9, R_IZ = 13;
+constexpr int R_NX = 0, R_NY = 3, R_C = 6, R_IL = 9, R_SIGN = 12,
+              R_IZ = 13;
+// rows of fgrad a backward item writes to its scratch slot: all but R_SIGN
+constexpr int BR = 15;
+// the backward's reduce: blocks of RG groups of one thread per face, each
+// block over a range of TR tiles
+constexpr int RG = 4;
+constexpr int RT = RG * FC;
+constexpr int TR = 64;
+static_assert(TR % 32 == 0 && TR <= RT, "TR: whole warps of the block");
+
+__host__ __device__ constexpr int reduce_ranges(int T) {
+  return (T + TR - 1) / TR;
+}
+
+__host__ __device__ constexpr int partial_row(int r) {
+  return r < R_SIGN ? r : r - 1;
+}
 
 struct Face {
   float nx[3], ny[3], c[3], il[3], iz[3];
@@ -438,8 +461,9 @@ __global__ void __launch_bounds__(PT)
                       const float* __restrict__ classes,
                       const float* __restrict__ g_depth,
                       const float* __restrict__ g_classes,
-                      float* __restrict__ fgrad, int T, int K, int Fp, int C,
-                      int S, float inv_sigma, float inv_gamma, float z_far) {
+                      float* __restrict__ partial, int T, int K, int Fp,
+                      int C, int S, float inv_sigma, float inv_gamma,
+                      float z_far) {
   __shared__ __align__(16) Stage st;
 
   const int j = blockIdx.x, t = blockIdx.y, b = blockIdx.z,
@@ -584,15 +608,119 @@ __global__ void __launch_bounds__(PT)
       g_c[k] += ebar[k];
     }
   }
-  float* fg_b = fgrad + static_cast<size_t>(b) * 16 * Fp;
+  // the item's slot: BR rows of FC faces, thread tid's face at column tid
+  float* out = partial + ((static_cast<size_t>(b) * T + t) * K + j) * BR * FC
+               + tid;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    atomicAdd(&fg_b[static_cast<size_t>(R_NX + k) * Fp + col], g_nx[k]);
-    atomicAdd(&fg_b[static_cast<size_t>(R_NY + k) * Fp + col], g_ny[k]);
-    atomicAdd(&fg_b[static_cast<size_t>(R_C + k) * Fp + col], g_c[k]);
-    atomicAdd(&fg_b[static_cast<size_t>(R_IL + k) * Fp + col], g_il[k]);
-    atomicAdd(&fg_b[static_cast<size_t>(R_IZ + k) * Fp + col], g_iz[k]);
+    out[partial_row(R_NX + k) * FC] = g_nx[k];
+    out[partial_row(R_NY + k) * FC] = g_ny[k];
+    out[partial_row(R_C + k) * FC] = g_c[k];
+    out[partial_row(R_IL + k) * FC] = g_il[k];
+    out[partial_row(R_IZ + k) * FC] = g_iz[k];
   }
+}
+
+// One block per (chunk k, scene b, range s of TR tiles), RG groups of FC
+// threads; thread f of each group owns face k * FC + f. First the block
+// lists, in increasing tile order, the scratch slots of its tiles that
+// hold chunk k: thread i < TR finds the slot j < counts of tile s TR + i
+// whose clist entry is k (chunk_lists lists a chunk at most once per
+// tile), and a ballot per warp appends the finds in order. Then group g
+// adds the g-th quarter of that list, in order, group 0 adds the four
+// group sums, in order, and writes the block's sums to its slot (b, k, s)
+// of `sums`. The order depends on the lists only: the same bits from run
+// to run. Ranges of TR tiles spread a chunk that many tiles list over
+// several blocks (one block per chunk, walking all its tiles, took 0.05
+// ms at 256 px; one thread group walking all T tiles one after another,
+// 0.13 ms; PERF.md).
+__global__ void __launch_bounds__(RT)
+    raster_bwd_reduce_kernel(const int* __restrict__ counts,
+                             const int* __restrict__ clist,
+                             const float* __restrict__ partial,
+                             float* __restrict__ sums, int T, int K) {
+  __shared__ int slots[TR];  // (b * T + t) * K + j
+  __shared__ int warp_n[TR / 32];
+  __shared__ float group_sum[RG - 1][BR][FC];
+
+  const int k = blockIdx.x, b = blockIdx.y, s = blockIdx.z,
+            tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  int found = -1;
+  unsigned hits = 0;
+  if (tid < TR) {  // whole warps
+    if (s * TR + tid < T) {
+      const int tile = b * T + s * TR + tid;
+      const int n = min(counts[tile], K);
+      for (int j = 0; j < n; ++j)
+        if (clist[static_cast<size_t>(tile) * K + j] == k) {
+          found = tile * K + j;
+          break;
+        }
+    }
+    hits = __ballot_sync(0xffffffffu, found >= 0);
+    if (lane == 0) warp_n[warp] = __popc(hits);
+  }
+  __syncthreads();
+  int n_slots = 0, at = 0;  // n_slots: the same in every thread
+#pragma unroll
+  for (int w = 0; w < TR / 32; ++w) {
+    n_slots += warp_n[w];
+    at += w < warp ? warp_n[w] : 0;
+  }
+  if (found >= 0) slots[at + __popc(hits & ((1u << lane) - 1u))] = found;
+  __syncthreads();
+
+  const int g = tid / FC, f = tid % FC;
+  float acc[BR];
+#pragma unroll
+  for (int r = 0; r < BR; ++r) acc[r] = 0.0f;
+  const int lo = n_slots * g / RG, hi = n_slots * (g + 1) / RG;
+#pragma unroll 4
+  for (int i = lo; i < hi; ++i) {
+    const float* p = partial + static_cast<size_t>(slots[i]) * BR * FC + f;
+#pragma unroll
+    for (int r = 0; r < BR; ++r) acc[r] += p[r * FC];
+  }
+  if (g > 0) {
+#pragma unroll
+    for (int r = 0; r < BR; ++r) group_sum[g - 1][r][f] = acc[r];
+  }
+  __syncthreads();
+  if (g > 0) return;
+#pragma unroll
+  for (int h = 0; h < RG - 1; ++h)
+#pragma unroll
+    for (int r = 0; r < BR; ++r) acc[r] += group_sum[h][r][f];
+  float* out = sums +
+               ((static_cast<size_t>(b) * K + k) * gridDim.z + s) * BR * FC +
+               f;
+#pragma unroll
+  for (int r = 0; r < BR; ++r) out[r * FC] = acc[r];
+}
+
+// One block per (chunk k, scene b), thread f owns face k * FC + f: adds
+// the chunk's NS range sums in order s = 0, 1, ... and writes fgrad
+// (R_SIGN zero).
+__global__ void __launch_bounds__(FC)
+    raster_bwd_combine_kernel(const float* __restrict__ sums,
+                              float* __restrict__ fgrad, int K, int NS,
+                              int Fp) {
+  const int k = blockIdx.x, b = blockIdx.y, f = threadIdx.x;
+  const float* p =
+      sums + (static_cast<size_t>(b) * K + k) * NS * BR * FC + f;
+  float acc[BR];
+#pragma unroll
+  for (int r = 0; r < BR; ++r) acc[r] = 0.0f;
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int r = 0; r < BR; ++r) acc[r] += p[(s * BR + r) * FC];
+  }
+  float* out = fgrad + static_cast<size_t>(b) * 16 * Fp + k * FC + f;
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+    out[static_cast<size_t>(r) * Fp] =
+        r == R_SIGN ? 0.0f : acc[partial_row(r)];
 }
 
 
@@ -632,23 +760,41 @@ int sln_raster_fwd(const void* fdata, const void* onehot, const void* counts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// fgrad (B, 16, Fp) must be zeroed by the caller; it is accumulated into.
-// One block per chunk slot of clist; counts is read on the device only.
+// Floats of scratch the backward takes: one slot of per-face sums per
+// chunk slot of clist (items), then one per (scene, chunk, tile range).
+long long sln_raster_bwd_scratch_floats(int B, int T, int K) {
+  return static_cast<long long>(B) * K * (T + reduce_ranges(T)) * BR * FC;
+}
+
+// fgrad (B, 16, Fp) is written whole; scratch holds
+// sln_raster_bwd_scratch_floats(B, T, K) floats, written and read for the
+// active slots only. Three launches on the stream: the items (one block
+// per chunk slot; counts is read on the device only), the reduce (one
+// block per (chunk, scene, range of TR tiles)) and the combine (one block
+// per (chunk, scene)).
 int sln_raster_bwd(const void* fdata, const void* onehot, const void* counts,
                    const void* clist, const void* res, const void* classes,
                    const void* g_depth, const void* g_classes, void* fgrad,
-                   int B, int T, int K, int Fp, int C, int S,
+                   void* scratch, int B, int T, int K, int Fp, int C, int S,
                    float inv_sigma, float inv_gamma, float z_far,
                    void* stream) {
   if (B > 0 && T > 0 && K > 0) {
-    raster_bwd_kernel<<<dim3(K, T, B), PT, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* partial = static_cast<float*>(scratch);
+    float* sums = partial + static_cast<size_t>(B) * T * K * BR * FC;
+    const int NS = reduce_ranges(T);
+    raster_bwd_kernel<<<dim3(K, T, B), PT, 0, st>>>(
         static_cast<const float*>(fdata), static_cast<const float*>(onehot),
         static_cast<const int*>(counts), static_cast<const int*>(clist),
         static_cast<const float*>(res), static_cast<const float*>(classes),
         static_cast<const float*>(g_depth),
-        static_cast<const float*>(g_classes), static_cast<float*>(fgrad), T,
-        K, Fp, C, S, inv_sigma, inv_gamma, z_far);
+        static_cast<const float*>(g_classes), partial, T, K, Fp, C, S,
+        inv_sigma, inv_gamma, z_far);
+    raster_bwd_reduce_kernel<<<dim3(K, B, NS), RT, 0, st>>>(
+        static_cast<const int*>(counts), static_cast<const int*>(clist),
+        partial, sums, T, K);
+    raster_bwd_combine_kernel<<<dim3(K, B), FC, 0, st>>>(
+        sums, static_cast<float*>(fgrad), K, NS, Fp);
   }
   return static_cast<int>(cudaGetLastError());
 }

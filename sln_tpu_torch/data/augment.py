@@ -52,7 +52,7 @@ def draw_graph_randomness(B: int, O: int, generator: torch.Generator,
                       u_none=uniform(B, O), u_height=uniform(B, O))
 
 
-def _denormalize(boxes: torch.Tensor, room_mask: torch.Tensor):
+def denormalize(boxes: torch.Tensor, room_mask: torch.Tensor):
     """(B, O, 6) normalized (room row absolute) -> all absolute."""
     room_dims = (boxes * room_mask[..., None]).sum(1)[..., 3:]   # (B, 3)
     scale = torch.cat([room_dims, room_dims], -1)[:, None, :]
@@ -79,7 +79,7 @@ def build_graphs(objs, boxes, angles, obj_mask, room_ids,
     real_mask = obj_mask & ~room_mask
     room_slot = room_mask.to(torch.uint8).argmax(-1)              # (B,)
 
-    relmat = relation_matrix(_denormalize(boxes, room_mask))       # (B, O, O)
+    relmat = relation_matrix(denormalize(boxes, room_mask))       # (B, O, O)
     eye = torch.eye(O, dtype=torch.bool, device=device)
     pair_real = real_mask[:, :, None] & real_mask[:, None, :] & ~eye
     on_valid = pair_real & (relmat == P_ON)

@@ -86,8 +86,10 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sln_raster_fwd.argtypes = [p] * 8 + [i] * 6 + [f] * 3 + [p]
     lib.sln_raster_fwd.restype = i
-    lib.sln_raster_bwd.argtypes = [p] * 9 + [i] * 6 + [f] * 3 + [p]
+    lib.sln_raster_bwd.argtypes = [p] * 10 + [i] * 6 + [f] * 3 + [p]
     lib.sln_raster_bwd.restype = i
+    lib.sln_raster_bwd_scratch_floats.argtypes = [i] * 3
+    lib.sln_raster_bwd_scratch_floats.restype = ctypes.c_longlong
     for info in (lib.sln_raster_fwd_info, lib.sln_raster_bwd_info):
         info.argtypes = [p]
         info.restype = i

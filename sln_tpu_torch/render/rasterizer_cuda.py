@@ -54,7 +54,9 @@ MAX_CLASSES = 32   # the kernels' per-pixel class accumulator width
 # so both the visibility weight and the transmittance term vanish exactly
 CULL_HALO_PX = 8.0
 
-# kernel launches, counted where each wrapper launches its kernel
+# kernel launches, counted where each wrapper launches its kernels: two per
+# forward call (item, merge), three per backward call (item, reduce,
+# combine)
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -388,14 +390,16 @@ def raster_fwd_cuda(fdata, onehot, counts, clist, image_size: int,
             Fp, C, image_size, 1.0 / sigma, 1.0 / gamma, z_far,
             ctypes.c_void_p(stream))
     _raise_on(err, "sln_raster_fwd")
-    FWD_LAUNCHES += 1
+    FWD_LAUNCHES += 2       # the item and merge kernels
     return depth, classes, res
 
 
 def raster_bwd_cuda(fdata, onehot, counts, clist, res, classes, g_depth,
                     g_classes, image_size: int, sigma: float, gamma: float,
                     z_far: float) -> torch.Tensor:
-    """Launch the backward kernel; output as raster_bwd_plain."""
+    """Launch the backward (its item kernel, then its reduce and combine
+    kernels, which add each face's per-tile sums in tile order: the same
+    bits from run to run); output as raster_bwd_plain."""
     global BWD_LAUNCHES
     from sln_tpu_torch import kernels
 
@@ -406,16 +410,20 @@ def raster_bwd_cuda(fdata, onehot, counts, clist, res, classes, g_depth,
     _check("g_depth", g_depth, torch.float32, (B, P, 1))
     _check("g_classes", g_classes, torch.float32, (B, P, C))
     lib = kernels.load()
-    fgrad = torch.zeros(B, 16, Fp, dtype=torch.float32, device=fdata.device)
+    kw = dict(dtype=torch.float32, device=fdata.device)
+    fgrad = torch.empty(B, 16, Fp, **kw)
+    # per-face sums (the 15 rows other than R_SIGN): one slot per chunk
+    # slot of clist, then one per (scene, chunk, range of tiles)
+    scratch = torch.empty(lib.sln_raster_bwd_scratch_floats(B, T, K), **kw)
     with torch.cuda.device(fdata.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sln_raster_bwd(
             _ptr(fdata), _ptr(onehot), _ptr(counts), _ptr(clist), _ptr(res),
             _ptr(classes), _ptr(g_depth), _ptr(g_classes), _ptr(fgrad),
-            B, T, K, Fp, C, image_size, 1.0 / sigma, 1.0 / gamma, z_far,
-            ctypes.c_void_p(stream))
+            _ptr(scratch), B, T, K, Fp, C, image_size, 1.0 / sigma,
+            1.0 / gamma, z_far, ctypes.c_void_p(stream))
     _raise_on(err, "sln_raster_bwd")
-    BWD_LAUNCHES += 1
+    BWD_LAUNCHES += 3       # the item, reduce and combine kernels
     return fgrad
 
 

@@ -60,6 +60,8 @@ class SceneBuffers(NamedTuple):
     faces: torch.Tensor        # (B, F, 3) int64 into verts
     face_class: torch.Tensor   # (B, F) render-class ids
     face_valid: torch.Tensor   # (B, F) bool
+    vert_slots: torch.Tensor   # (B, V, W) corner slots f*3+c that read each
+    #                            vertex; padding points at slot F*3
 
 
 class DeviceBank(NamedTuple):
@@ -72,10 +74,35 @@ class DeviceBank(NamedTuple):
     shell_faces: torch.Tensor  # (S, Fs, 3)
     shell_part: torch.Tensor   # (S, Fs) 0=wall 1=floor 2=ceiling
     shell_fvalid: torch.Tensor  # (S, Fs) bool
+    vert_slots: torch.Tensor   # (M, Vm, W) vertex_slots of each mesh
+    shell_vert_slots: torch.Tensor  # (S, Vs, W) vertex_slots of each shell
     obj_renderable: torch.Tensor  # (num_objs,) bool
     obj_render_class: torch.Tensor  # (num_objs,) int64
     rc_to_nyu: torch.Tensor    # (32, 40)
     depth_sel: torch.Tensor    # (29,) render classes with a depth channel
+
+
+def vertex_slots(faces: np.ndarray, num_verts: int, width: int
+                 ) -> np.ndarray:
+    """Inverse of a face index: faces (..., F, 3) -> (..., V, width) int64,
+    row v listing the corner slots f*3 + c with faces[f, c] == v in
+    ascending order, padded with -1. `width` must be at least the largest
+    vertex valence (`max_valence`)."""
+    lead, n = faces.shape[:-2], faces.shape[-2] * 3
+    flat = np.asarray(faces, np.int64).reshape(-1, n)
+    out = np.full((len(flat), num_verts, width), -1, np.int64)
+    for i, f in enumerate(flat):
+        order = np.argsort(f, kind="stable")
+        v = f[order]
+        rank = np.arange(n) - np.searchsorted(v, v, side="left")
+        out[i, v, rank] = order
+    return out.reshape(lead + (num_verts, width))
+
+
+def max_valence(faces: np.ndarray, num_verts: int) -> int:
+    """The most corner slots that read one vertex, over every mesh."""
+    flat = np.asarray(faces, np.int64).reshape(-1, faces.shape[-2] * 3)
+    return max(int(np.bincount(f, minlength=num_verts).max()) for f in flat)
 
 
 def device_bank(bank: assets.MeshBank, shell_subdiv: int = 4,
@@ -88,6 +115,9 @@ def device_bank(bank: assets.MeshBank, shell_subdiv: int = 4,
     def t(x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
+    Vm, Vs = bank.verts.shape[1], shells.verts.shape[1]
+    width = max(max_valence(bank.faces, Vm), max_valence(shells.faces, Vs))
+
     return DeviceBank(
         verts=t(bank.verts, torch.float32), faces=t(bank.faces, torch.long),
         face_valid=t(bank.face_valid), bbox_min=t(bank.bbox_min),
@@ -96,6 +126,8 @@ def device_bank(bank: assets.MeshBank, shell_subdiv: int = 4,
         shell_faces=t(shells.faces, torch.long),
         shell_part=t(shells.part, torch.long),
         shell_fvalid=t(shells.face_valid),
+        vert_slots=t(vertex_slots(bank.faces, Vm, width)),
+        shell_vert_slots=t(vertex_slots(shells.faces, Vs, width)),
         obj_renderable=t(OBJ_RENDERABLE),
         obj_render_class=t(OBJ_TO_RENDER_CLASS),
         rc_to_nyu=t(RC_TO_NYU_MATRIX), depth_sel=t(DEPTH_SEL))
@@ -158,6 +190,21 @@ def assemble_scene(objs, boxes, angles, obj_mask, model_idx,
     shell_class = torch.where(
         spart == 0, WALL_RC, torch.where(spart == 1, FLOOR_RC, CEIL_RC))
     Fs = shell_faces.shape[0]
+    # the inverse face index, offset like the faces; padding -> the zero
+    # slot past the last corner
+    Fm = mfaces.shape[2]
+    n_slots = (O * Fm + Fs) * 3
+    obj_slots = bank.vert_slots[model_idx]                       # (B,O,Vm,W)
+    obj_slots = torch.where(
+        obj_slots >= 0, obj_slots + (torch.arange(O, device=objs.device)
+                                     * Fm * 3)[None, :, None, None],
+        n_slots)
+    shell_slots = bank.shell_vert_slots[shell_idx]
+    shell_slots = torch.where(shell_slots >= 0, shell_slots + O * Fm * 3,
+                              n_slots)
+    vert_slots = torch.cat([
+        obj_slots.reshape(B, O * Vm, -1),
+        shell_slots[None].expand(B, *shell_slots.shape)], 1)
     verts = torch.cat([world.reshape(B, -1, 3), shell_world], 1)
     faces = torch.cat([faces_global.reshape(B, -1, 3),
                        shell_faces[None].expand(B, Fs, 3)], 1)
@@ -166,7 +213,32 @@ def assemble_scene(objs, boxes, angles, obj_mask, model_idx,
     fvalid = torch.cat([face_valid.reshape(B, -1),
                         bank.shell_fvalid[shell_idx][None].expand(B, Fs)], 1)
     return SceneBuffers(verts=verts, faces=faces, face_class=fclass,
-                        face_valid=fvalid)
+                        face_valid=fvalid, vert_slots=vert_slots)
+
+
+class GatherCorners(torch.autograd.Function):
+    """x (B, V, D) at the face corners: (B, N, D), N = F * 3, as
+    torch.gather. Its backward sums each vertex's corner gradients through
+    the inverse index `slots` (vertex_slots) in a fixed order: torch.gather's
+    own backward is a scatter_add, which on the card adds the corners of
+    a shared vertex with atomics in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, corners, slots):
+        ctx.save_for_backward(slots)
+        B, N = corners.shape
+        return torch.gather(x, 1, corners[..., None].expand(B, N,
+                                                            x.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (slots,) = ctx.saved_tensors
+        B, V, W = slots.shape
+        D = g.shape[-1]
+        padded = torch.cat([g, g.new_zeros(B, 1, D)], 1)    # the zero slot
+        per_slot = torch.gather(padded, 1, slots.reshape(B, V * W, 1)
+                                .expand(B, V * W, D))
+        return per_slot.reshape(B, V, W, D).sum(2), None, None
 
 
 def scene_geometry(scene: SceneBuffers, room_dims: torch.Tensor,
@@ -177,10 +249,10 @@ def scene_geometry(scene: SceneBuffers, room_dims: torch.Tensor,
     v2d_all, z_all = cam_lib.project(cam_lib.to_camera(scene.verts, cam),
                                      cam)
     B, Fn, _ = scene.faces.shape
-    idx = scene.faces.reshape(B, Fn * 3)
-    tri_v2d = torch.gather(v2d_all, 1, idx[..., None].expand(B, Fn * 3, 2)
-                           ).reshape(B, Fn, 3, 2)
-    tri_z = torch.gather(z_all, 1, idx).reshape(B, Fn, 3)
+    tri = GatherCorners.apply(torch.cat([v2d_all, z_all[..., None]], -1),
+                              scene.faces.reshape(B, Fn * 3),
+                              scene.vert_slots).reshape(B, Fn, 3, 3)
+    tri_v2d, tri_z = tri[..., :2], tri[..., 2]
     culled = (tri_z < cfg.camera.cull_eps).any(-1)
     return face_geometry(tri_v2d, tri_z, scene.face_valid & ~culled,
                          scene.face_class, near=cfg.camera.near)

@@ -55,7 +55,9 @@ def test_kernels_match_plain_versions(card):
     g_p = tc.raster_bwd_plain(*packed, r_p, c_p, gd, gc, *CONSTS)
     scale = max(float(g_p.abs().max()), 1e-3)
     torch.testing.assert_close(g_k, g_p, rtol=2e-3, atol=2e-3 * scale)
-    assert (tc.FWD_LAUNCHES - f0, tc.BWD_LAUNCHES - b0) == (1, 1)
+    # each call counts its kernels: the forward's item and merge, the
+    # backward's item, reduce and combine
+    assert (tc.FWD_LAUNCHES - f0, tc.BWD_LAUNCHES - b0) == (2, 3)
 
 
 def test_bwd_kernel_on_skewed_chunk_lists(card):
@@ -83,6 +85,23 @@ def test_bwd_kernel_on_skewed_chunk_lists(card):
     assert bool(torch.isfinite(g_k).all()) and bool((g_k[5] == 0).all())
     scale = max(float(g_p.abs().max()), 1e-3)
     torch.testing.assert_close(g_k, g_p, rtol=2e-3, atol=2e-3 * scale)
+
+
+def test_bwd_kernel_gives_the_same_bits_twice(card):
+    """The backward sums each face's per-tile partials in tile order (no
+    atomics): two launches on the same inputs give the same bits, here
+    and with an empty scene."""
+    v2d, z, valid, cls = scenes(card, n=600, B=4, seed=5)
+    valid[2] = False
+    packed = tc.prepare_faces(tr.face_geometry(v2d, z, valid, cls), C, S)
+    _, c_p, r_p = tc.raster_fwd_plain(*packed, *CONSTS)
+    gen = torch.Generator(card).manual_seed(6)
+    gd = torch.randn(4, S * S, 1, generator=gen, device=card)
+    gc = torch.randn(c_p.shape, generator=gen, device=card)
+    g1 = tc.raster_bwd_cuda(*packed, r_p, c_p, gd, gc, *CONSTS)
+    g2 = tc.raster_bwd_cuda(*packed, r_p, c_p, gd, gc, *CONSTS)
+    assert torch.equal(g1, g2)
+    assert bool((g1[2] == 0).all())
 
 
 def test_fwd_kernel_on_skewed_chunk_lists(card):
