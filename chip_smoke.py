@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, as below
     python3 chip_smoke.py --kernels-only   # device, build, kernels, times
+    python3 chip_smoke.py --train-recipe   # every phase, then the recipe
 
 Phases, each printing a line as it ends:
   1. device   the card must be there (else this exits non-zero); prints
@@ -37,19 +38,36 @@ Phases, each printing a line as it ends:
               val rooms (seed 7) within bands of the JAX package's
               numbers; the sweep's and the eval's seconds and the
               sampler's layouts/s (the card's name and power limit beside)
-  6. times    active chunks per tile and work items at 96 px / 8 rooms and
+  6. train    training on the card (no rasterizer kernel on this path):
+              `python -m sln_tpu_torch.train` through its main at the
+              committed model's recipe and width (4,096 synthetic rooms,
+              batch 256, free bits 0.05), 200 iterations: finite losses, the
+              last printed total_loss below the first, the checkpoint trio
+              written, and restore_model on it decoding as the trained model
+              bit for bit; two steps on the card against the same two on the
+              CPU from the trained state (same random numbers, rtol 1e-4);
+              the same step twice op by op and 20 more steps twice: the
+              same bits in every op output, loss, parameter, Adam and
+              BatchNorm state;
+              scenes/s at batch 256 (CUDA events, best of two windows of 60
+              steps) and the profile of three steps. With --train-recipe, the
+              whole recipe (6,000 iterations) follows, its losses beside the
+              committed checkpoint's, and the quality cell on the result
+              (without the cached-posterior comparison: another model has
+              another posterior), acc_pred >= 0.870 and l1_pred <= 0.1115
+  7. times    active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
               8-room shapes and both kernels' at 256 px (CUDA events),
               beside each kernel's bound; each kernel's device time split
               between its launches (torch.profiler)
-  7. profile  torch.profiler over three 8-room refine steps: device busy
+  8. profile  torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
-Then one JSON line of kernel records, the card's nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}. Any failed phase raises, so the
-script exits non-zero and prints no result. All outputs go to a temporary
-directory that is removed at the end.
+Then one JSON line of kernel records, the refine, sampling and train lines,
+the card's nvidia-smi line, and as the last line {"ok": true, "device":
+{...}}. Any failed phase raises, so the script exits non-zero and prints no
+result. All outputs go to a temporary directory that is removed at the end.
 """
 
 from __future__ import annotations
@@ -72,10 +90,12 @@ import torch
 
 from sln_tpu_torch import kernels, test as entry
 from sln_tpu_torch.config import TrainConfig, default_config
-from sln_tpu_torch.data.augment import build_graphs
+from sln_tpu_torch.data.augment import build_graphs, draw_graph_randomness
 from sln_tpu_torch.models.vae import reparameterize
 from sln_tpu_torch.render import assets, scene as scene_lib
 from sln_tpu_torch.render import rasterizer_cuda as rc
+from sln_tpu_torch.train import checkpoint as train_ckpt
+from sln_tpu_torch.train import cli as train_cli, loop as train_loop
 from sln_tpu_torch.workloads import acc_l1_std, common, heatmap
 from sln_tpu_torch.workloads import posterior, refine
 
@@ -318,33 +338,35 @@ def kernel_split(fn, n: int = 20) -> dict:
     return split
 
 
-def profile_steps(refiner, n: int) -> None:
-    """torch.profiler over n refine steps: where the step's time goes."""
+def profile_steps(step, n: int, label: str) -> dict:
+    """torch.profiler over n calls of `step`: where the step's time goes.
+    Returns the wall and busy ms per step and the kernels per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    refiner.step()
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            with record_function("refine_step"):
-                refiner.step()
+            with record_function("profiled_step"):
+                step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = prof.key_averages()
 
-    # device-side ranges of annotations (refine_step, Optimizer.step#...)
+    # device-side ranges of annotations (profiled_step, Optimizer.step#...)
     # share their name with a host event; they span kernels, not add to them
     host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
     kernels_ = [e for e in events if e.device_type == DeviceType.CUDA
                 and e.key not in host_keys]
     busy_ms = sum(dev_us(e) for e in kernels_) / 1e3 / n
-    print(f"  profiled step (8 rooms, 96 px): wall {wall_ms:.3f} ms under "
+    per_step = sum(e.count for e in kernels_) / n
+    print(f"  profiled {label}: wall {wall_ms:.3f} ms under "
           f"the profiler, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), "
-          f"{sum(e.count for e in kernels_) / n:.0f} kernels per step")
+          f"{per_step:.0f} kernels per step")
     for e in sorted(kernels_, key=dev_us, reverse=True)[:10]:
         print(f"    device {dev_us(e) / 1e3 / n:8.3f} ms/step "
               f"x{e.count / n:5.0f}  {e.key[:90]}")
@@ -357,7 +379,7 @@ def profile_steps(refiner, n: int) -> None:
     # the runtime's copies and waits, inside the steps and outside them
     # (this script's synchronize and the profiler's own when it stops)
     steps = [e.time_range for e in prof.events()
-             if e.name == "refine_step" and e.device_type == DeviceType.CPU]
+             if e.name == "profiled_step" and e.device_type == DeviceType.CPU]
 
     def in_step(e):
         return any(r.start <= e.time_range.start <= r.end for r in steps)
@@ -371,6 +393,9 @@ def profile_steps(refiner, n: int) -> None:
     dtoh = sum(e.count for e in kernels_ if "DtoH" in e.key) / n
     print(f"  {n} steps: {dtoh * n:.0f} device-to-host copies; runtime "
           f"copies and synchronisations {json.dumps(waits)}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "kernels_per_step": per_step,
+            "dtoh_per_step": dtoh, "runtime_waits": waits}
 
 
 def nbytes(*ts) -> int:
@@ -524,6 +549,51 @@ def times_phase(packed96, packed256, rcfg96, rcfg256, device):
     return fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound
 
 
+def quality_cell(model, cfg, tmp: str, device, against_jax: bool = True):
+    """The quality cell of bench.py:589-634: a fresh posterior over 4,096
+    synthetic rooms (seed 42), held against the JAX package's cached one
+    when `against_jax`, then acc / L1 / std on 512 val rooms (seed 7).
+    Returns (the numbers and seconds, mean, cov)."""
+    train, size_info = common.load_arrays(4096, cfg, device,
+                                          synthetic_seed=42)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, cov = posterior.collect_posterior_stats(model, train, size_info,
+                                                  cfg, device=device)
+    sweep_s = time.perf_counter() - t0
+    out_dir = tempfile.mkdtemp(prefix="quality_", dir=tmp)
+    with open(os.path.join(out_dir, "mean_cov.pkl"), "wb") as f:
+        pickle.dump([mean, cov], f)
+    q = {"posterior_sweep_s": sweep_s}
+    if against_jax:
+        with open(JAX_POSTERIOR, "rb") as f:
+            mean_j, cov_j = (np.asarray(x) for x in pickle.load(f))
+        d_post = {"mean max abs": float(np.abs(mean - mean_j).max()),
+                  "cov rel frobenius": float(np.linalg.norm(cov - cov_j)
+                                             / np.linalg.norm(cov_j))}
+        print(f"  posterior over 4096 rooms vs {JAX_POSTERIOR}: "
+              + ", ".join(f"{k} {v:.5f} (bound {POSTERIOR_BOUNDS[k]})"
+                          for k, v in d_post.items()), flush=True)
+        for k, v in d_post.items():
+            if not v <= POSTERIOR_BOUNDS[k]:
+                raise AssertionError(f"posterior {k} {v} beyond "
+                                     f"{POSTERIOR_BOUNDS[k]}")
+        q["posterior"] = d_post
+    val, _ = common.load_arrays(512, cfg, device, synthetic_seed=7)
+    t0 = time.perf_counter()
+    q.update(acc_l1_std.run_acc_l1(model, val, size_info, cfg, mean, cov,
+                                   batch_size=256, device=device))
+    q.update(acc_l1_std.run_std(model, val, size_info, cfg, mean, cov,
+                                nsample=10, batch_size=256, device=device))
+    q["eval_s"] = time.perf_counter() - t0
+    print("  quality (512 val rooms, seed 7, nsample 10): "
+          + " ".join(f"{k} {q[k]:.5f}" for k in (
+              "acc_pred", "acc_rand", "acc_pert", "l1_pred", "l1_rand",
+              "l1_pert", "std_angle", "std_pos", "std_size"))
+          + f"; {q['total_triples']} triples", flush=True)
+    return q, mean, cov
+
+
 def sampling_phase(cfg, tmp: str, device, smi: str) -> dict:
     """The sampling and evaluation modes on the card; returns the quality
     cell's numbers and times."""
@@ -547,42 +617,7 @@ def sampling_phase(cfg, tmp: str, device, smi: str) -> dict:
 
         # the quality cell: a fresh posterior (the cached one is only read)
         model = common.restore_model(cfg, device)
-        train, size_info = common.load_arrays(4096, cfg, device,
-                                              synthetic_seed=42)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mean, cov = posterior.collect_posterior_stats(model, train,
-                                                      size_info, cfg,
-                                                      device=device)
-        sweep_s = time.perf_counter() - t0
-        os.makedirs(os.path.join(tmp, "quality"))
-        with open(os.path.join(tmp, "quality", "mean_cov.pkl"), "wb") as f:
-            pickle.dump([mean, cov], f)
-        with open(JAX_POSTERIOR, "rb") as f:
-            mean_j, cov_j = (np.asarray(x) for x in pickle.load(f))
-        d_post = {"mean max abs": float(np.abs(mean - mean_j).max()),
-                  "cov rel frobenius": float(np.linalg.norm(cov - cov_j)
-                                             / np.linalg.norm(cov_j))}
-        print(f"  posterior over 4096 rooms vs {JAX_POSTERIOR}: "
-              + ", ".join(f"{k} {v:.5f} (bound {POSTERIOR_BOUNDS[k]})"
-                          for k, v in d_post.items()), flush=True)
-        for k, v in d_post.items():
-            if not v <= POSTERIOR_BOUNDS[k]:
-                raise AssertionError(f"posterior {k} {v} beyond "
-                                     f"{POSTERIOR_BOUNDS[k]}")
-        val, _ = common.load_arrays(512, cfg, device, synthetic_seed=7)
-        t0 = time.perf_counter()
-        q = acc_l1_std.run_acc_l1(model, val, size_info, cfg, mean, cov,
-                                  batch_size=256, device=device)
-        q.update(acc_l1_std.run_std(model, val, size_info, cfg, mean, cov,
-                                    nsample=10, batch_size=256,
-                                    device=device))
-        eval_s = time.perf_counter() - t0
-        print("  quality (512 val rooms, seed 7, nsample 10): "
-              + " ".join(f"{k} {q[k]:.5f}" for k in (
-                  "acc_pred", "acc_rand", "acc_pert", "l1_pred", "l1_rand",
-                  "l1_pert", "std_angle", "std_pos", "std_size"))
-              + f"; {q['total_triples']} triples", flush=True)
+        q, mean, cov = quality_cell(model, cfg, tmp, device)
         for k, (lo, hi) in QUALITY_BANDS.items():
             if not lo <= q[k] <= hi:
                 raise AssertionError(f"{k} {q[k]} outside [{lo}, {hi}]")
@@ -604,26 +639,227 @@ def sampling_phase(cfg, tmp: str, device, smi: str) -> dict:
         print(f"  heat map: {boxes.shape[0]} layouts of "
               f"{boxes.shape[1]} boxes; sampler {ms:.4f} ms per batch of "
               f"4096 (CUDA events, 40 calls) = {rate:.0f} layouts/s")
-        print(f"  posterior sweep {sweep_s:.2f} s (4096 rooms), eval "
-              f"{eval_s:.2f} s (512 rooms), sampler {rate:.0f} layouts/s, "
-              f"on {smi}", flush=True)
-    return {**q, "posterior": d_post, "posterior_sweep_s": sweep_s,
-            "eval_s": eval_s, "sampler_layouts_per_s": rate}
+        print(f"  posterior sweep {q['posterior_sweep_s']:.2f} s (4096 "
+              f"rooms), eval {q['eval_s']:.2f} s (512 rooms), sampler "
+              f"{rate:.0f} layouts/s, on {smi}", flush=True)
+    return {**q, "sampler_layouts_per_s": rate}
+
+
+# the committed model's recipe (artifacts/latest_bench_with_model.ckpt's
+# pickled args): full width, batch 256, fp32
+RECIPE = ["--synthetic", "4096", "--batch_size", "256", "--KL_free_bits",
+          "0.05", "--manual_seed", "42", "--learning_rate", "1e-4",
+          "--KL_loss_weight", "0.1", "--embedding_dim", "64",
+          "--gconv_num_layers", "5", "--mlp_normalization", "batch"]
+# the phase's short run: at the 52-74 ms per step measured on an H100
+# (PERF.md §6), 200 steps take ~15 s, which leaves the phase under a
+# minute with the set-up, the CPU steps, the repeat and the profile; the
+# loss falls from its early KL peak by more than its batch-to-batch spread
+TRAIN_ITERS = 200
+REPEAT_ITERS = 20
+RECIPE_ITERS = 6000
+# the committed checkpoint's loss history (t = 2000 / 4000 / 6000)
+COMMITTED_LOSSES = {
+    "total_loss": (4.616121292114258, 4.023364067077637, 3.557696580886841),
+    "bbox_pred": (0.13908325135707855, 0.11583220213651657,
+                  0.11067518591880798),
+    "angle_pred": (2.823082447052002, 2.83974289894104, 2.8030567169189453),
+    "KLD_raw": (16.535429000854492, 10.57508373260498, 6.286194801330566)}
+# a port-trained model against the JAX package's 0.883 / 0.1092
+RECIPE_QUALITY = {"acc_pred": (0.870, None), "l1_pred": (None, 0.1115)}
+
+
+def train_run(argv, device):
+    """`python -m sln_tpu_torch.train` through its main, rasterizer launch
+    counts around it; returns (state, checkpoint dict, seconds)."""
+    rc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, ckpt = train_cli.main([*argv, "--device", device.type])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"  python -m sln_tpu_torch.train {' '.join(argv)}: {seconds:.1f} "
+          f"s; rasterizer launches fwd {rc.FWD_LAUNCHES}, bwd "
+          f"{rc.BWD_LAUNCHES} (training renders nothing)", flush=True)
+    history = ckpt["losses"]
+    for name, vals in history.items():
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"training {name}: non-finite {vals}")
+    return state, ckpt, seconds
+
+
+def train_phase(tmp: str, device, smi: str, recipe: bool) -> dict:
+    """Training on the card; returns its numbers."""
+    with phase("train"):
+        out_dir = os.path.join(tmp, "train")
+        argv = [*RECIPE, "--num_iterations", str(TRAIN_ITERS),
+                "--print_every", str(TRAIN_ITERS // 3),
+                "--checkpoint_every", str(TRAIN_ITERS),
+                "--snapshot_every", str(TRAIN_ITERS),
+                "--output_dir", out_dir, "--checkpoint_name", "smoke"]
+        state, ckpt, seconds = train_run(argv, device)
+        total = ckpt["losses"]["total_loss"]
+        if not total[-1] < total[0]:
+            raise AssertionError(f"total_loss did not fall: {total}")
+        print(f"  total_loss at t = {ckpt['losses_ts']}: {total}")
+        written = sorted(os.listdir(out_dir))
+        if written != ["latest_smoke_with_model.ckpt", "metrics.jsonl",
+                       "smoke_no_model.ckpt",
+                       "smokesnapshot_000000K.ckpt"]:
+            raise AssertionError(f"the trainer wrote {written}")
+        # what it wrote decodes as the trained model does, bit for bit
+        cfg = train_cli.config_from_args(train_cli.parse_args(argv))
+        restored = common.restore_model(cfg, device)
+        batch = batch_of_rooms(cfg, 8, 3, device)
+        z = torch.randn(batch.boxes.shape[:2] + (cfg.model.latent_dim,),
+                        generator=torch.Generator(device).manual_seed(4),
+                        device=device)
+        with torch.no_grad():
+            want = state.model.eval().decode(z, batch)
+            got = restored.decode(z, batch)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("the restored checkpoint decodes "
+                                 "differently from the trained model")
+        print(f"  wrote {written}; restore_model decodes as the trained "
+              "model, bit for bit", flush=True)
+
+        arrays, size_info = common.load_arrays(4096, cfg, device,
+                                               synthetic_seed=42)
+        rows = np.arange(cfg.train.batch_size)
+        raw_host = {k: v[rows] for k, v in arrays.items()}
+
+        # (b) two steps on the card and on the CPU from the trained state,
+        # with the same random numbers. Not from zero moments: Adam's first
+        # update is lr g / (|g| + eps), so a gradient near zero flips the
+        # sign of its lr-sized step on rounding, and the second step's loss
+        # would carry that
+        trained = train_ckpt.load_checkpoint(train_ckpt.latest_path(
+            out_dir, "smoke"))
+        gen = torch.Generator().manual_seed(0)
+        B, O = raw_host["objs"].shape
+        draws = [[(draw_graph_randomness(B, O, gen, "cpu"),
+                   torch.randn(B, O, cfg.model.latent_dim, generator=gen))]
+                 for _ in range(2)]
+        runs = {}
+        for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            si = type(size_info)(*(x.to(dev) for x in size_info))
+            st = train_loop.create_state(cfg, dev, trained)
+            step = train_loop.make_train_step(st, cfg, si)
+            raw = train_loop.stage_arrays(raw_host, dev)
+            runs[name] = [{k: float(v) for k, v in step(raw, d).items()}
+                          for d in draws]
+        for a, b in zip(runs["card"], runs["cpu"]):
+            for k in b:
+                if not np.isclose(a[k], b[k], rtol=1e-4, atol=0):
+                    raise AssertionError(f"card vs CPU {k}: {a[k]} vs {b[k]}"
+                                         " beyond rtol 1e-4")
+        print(f"  card vs CPU, 2 steps at batch {B}: total_loss "
+              f"{[r['total_loss'] for r in runs['card']]} vs "
+              f"{[r['total_loss'] for r in runs['cpu']]}", flush=True)
+
+        # (c) the same run twice: the same bits
+        staged = train_loop.stage_arrays(arrays, device)
+        pair = []
+        for _ in range(2):
+            st = train_loop.create_state(cfg, device)
+            pair.append((st, train_loop.make_train_step(st, cfg, size_info)))
+        raw = train_loop.gather_batch(staged, rows)
+        traces = []
+        for st, step in pair:
+            with op_trace_mode() as trace:
+                step(raw)
+            traces.append(trace)
+        t1, t2 = traces
+        if t1.names != t2.names:
+            raise AssertionError("two identical train steps ran different "
+                                 "ops")
+        differ = (torch.stack(t1.sums) != torch.stack(t2.sums)).nonzero()
+        first = t1.names[int(differ[0])] if len(differ) else "none"
+        histories = []
+        for st, step in pair:
+            rng = np.random.default_rng(0)
+            hist = []
+            while len(hist) < REPEAT_ITERS:
+                for idx in train_loop.batch_indices(len(arrays["objs"]), B,
+                                                    rng):
+                    if len(hist) < REPEAT_ITERS:
+                        hist.append(step(train_loop.gather_batch(
+                            staged, idx))["total_loss"])
+            histories.append(torch.stack(hist))
+        same_hist = torch.equal(*histories)
+        same_state = all(torch.equal(a, b) for a, b in zip(
+            pair[0][0].state_tensors(), pair[1][0].state_tensors()))
+        print(f"  one train step twice: {len(t1.names)} op outputs "
+              f"compared, {len(differ)} differ, first: {first}; "
+              f"{REPEAT_ITERS + 1} steps twice: loss histories "
+              f"{'equal' if same_hist else 'DIFFER'},"
+              f" parameters, Adam and BatchNorm state "
+              f"{'equal' if same_state else 'DIFFER'}", flush=True)
+        if len(differ) or not same_hist or not same_state:
+            raise AssertionError("training is not bitwise reproducible")
+
+        # (d) throughput (bench.py:460-526: one batch, warmed up, best of
+        # two windows of 60 steps) and the profile of three steps
+        step = pair[0][1]
+        step(raw)
+        windows = [event_ms(lambda: step(raw), 60, 0) for _ in range(2)]
+        rate = B / (min(windows) / 1e3)
+        prof = profile_steps(lambda: step(raw), 3, f"train step (batch {B})")
+        print(f"  train step at batch {B}: {windows[0]:.3f}, "
+              f"{windows[1]:.3f} ms (CUDA events, 60 steps each) = "
+              f"{rate:.0f} scenes/s, on {smi}", flush=True)
+        result = {"train_run_s": seconds, "iterations": TRAIN_ITERS,
+                  "total_loss": total, "card_vs_cpu": runs,
+                  "step_ms": windows, "train_scenes_per_sec": rate,
+                  "profile": prof}
+
+    if recipe:
+        with phase("train recipe"):
+            out_dir = os.path.join(tmp, "recipe")
+            # prints at 2000 / 4000 / 6000, saves at 3000 / 6000, as the
+            # committed checkpoint's run did
+            argv = [*RECIPE, "--num_iterations", str(RECIPE_ITERS),
+                    "--print_every", str(RECIPE_ITERS // 3),
+                    "--checkpoint_every", str(RECIPE_ITERS // 2),
+                    "--snapshot_every", str(RECIPE_ITERS // 2),
+                    "--output_dir", out_dir, "--checkpoint_name", "bench"]
+            _, ckpt, seconds = train_run(argv, device)
+            for name, committed in COMMITTED_LOSSES.items():
+                print(f"  {name} at t = {ckpt['losses_ts']}: "
+                      f"{ckpt['losses'][name]} (committed checkpoint: "
+                      f"{list(committed)})")
+            cfg = train_cli.config_from_args(train_cli.parse_args(argv))
+            q, _, _ = quality_cell(common.restore_model(cfg, device), cfg,
+                                   tmp, device, against_jax=False)
+            result["recipe"] = {"seconds": seconds,
+                                "losses_ts": ckpt["losses_ts"],
+                                "losses": ckpt["losses"], "quality": q}
+            print(f"  recipe: {RECIPE_ITERS} iterations in {seconds:.1f} s, "
+                  f"on {smi}", flush=True)
+            for k, (lo, hi) in RECIPE_QUALITY.items():
+                if (lo is not None and q[k] < lo) or (hi is not None
+                                                      and q[k] > hi):
+                    raise AssertionError(f"port-trained {k} {q[k]} misses "
+                                         f"({lo}, {hi})")
+    return result
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="run the device, build, kernels and times phases")
+    ap.add_argument("--train-recipe", action="store_true",
+                    help="also train the committed model's whole recipe "
+                         "and score it")
     args = ap.parse_args()
     tmp = tempfile.mkdtemp(prefix="sln_chip_smoke_")
     try:
-        run(tmp, args.kernels_only)
+        run(tmp, args.kernels_only, args.train_recipe)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run(tmp: str, kernels_only: bool = False) -> None:
+def run(tmp: str, kernels_only: bool = False, recipe: bool = False) -> None:
     with phase("device"):
         if not torch.cuda.is_available():
             raise RuntimeError("torch.cuda.is_available() is False: "
@@ -810,12 +1046,14 @@ def run(tmp: str, kernels_only: bool = False) -> None:
               " runs: bitwise-equal loss histories", flush=True)
 
     quality = sampling_phase(cfg, tmp, device, smi)
+    training = train_phase(tmp, device, smi, recipe)
 
     fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
 
     with phase("profile"):
-        profile_steps(refiners["serving 8 rooms 96px"], 3)
+        profile_steps(refiners["serving 8 rooms 96px"].step, 3,
+                      "step (8 rooms, 96 px)")
 
     def record(name, replaces, launches_n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda",
@@ -831,6 +1069,7 @@ def run(tmp: str, kernels_only: bool = False) -> None:
                launches["bwd"], err_bwd, bwd_ms, bwd_plain, bwd_bound)]}))
     print(json.dumps({"refine_ms_per_step": step_ms}))
     print(json.dumps({"sampling": quality}))
+    print(json.dumps({"train": training}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

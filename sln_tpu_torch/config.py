@@ -1,5 +1,5 @@
-"""Typed configuration: the fields the render-and-refine path and the
-sampling and evaluation workloads read.
+"""Typed configuration: the fields training, the render-and-refine path
+and the sampling and evaluation workloads read.
 
 Counterpart of sln_tpu/config.py (ModelConfig, DataConfig, CameraConfig,
 RenderConfig, RefineConfig). `RenderConfig.backend` is gone: the
@@ -24,6 +24,7 @@ class ModelConfig:
     mlp_normalization: str = "batch"          # 'batch' | 'none'
     decoder_cat: bool = True
     use_attr: bool = True
+    use_ae: bool = False                      # z = mu, no KL (--use_AE)
     train_3d: bool = True
     num_angles: int = 24
     num_objs: int = 32
@@ -74,7 +75,21 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
+    """Reference defaults: options/options.py:34-59, train.py:73-76."""
+
+    batch_size: int = 128
+    num_iterations: int = 600_000
     learning_rate: float = 1e-4   # the refine loop steps the model at this
+    kl_loss_weight: float = 0.1
+    kl_linear_decay: bool = False   # staircase 10**(t//1e5 - 6) when True
+    # free-bits floor per latent dimension (0 = off, the reference's loss)
+    kl_free_bits: float = 0.0
+    seed: int = 42
+    # gradient accumulation over chunks of this many scenes (0 = off)
+    microbatch: int = 0
+    print_every: int = 100
+    checkpoint_every: int = 1000
+    snapshot_every: int = 10_000
     output_dir: str = "./checkpoints"
     checkpoint_name: str = "latest_checkpoint"
 

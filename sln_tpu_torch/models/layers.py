@@ -1,5 +1,5 @@
-"""Masked BatchNorm and the reference-style MLP (counterpart of
-sln_tpu/models/layers.py).
+"""Masked BatchNorm, the one-hot embedding and the reference-style MLP
+(counterpart of sln_tpu/models/layers.py).
 
 Batches are padded to static shapes, so BatchNorm takes its statistics
 over the valid rows only — the reference's BatchNorm1d over the ragged
@@ -52,6 +52,21 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+class OneHotEmbedding(nn.Embedding):
+    """nn.Embedding whose lookup is one_hot(idx) @ weight, as the JAX
+    package's OneHotEmbed: the same values (one term of each sum is not
+    zero), and a backward that is a matrix product, the same bits run to
+    run. The gather's backward on the card (embedding_dense_backward) sums
+    rows whose indices collide in an order that varies from run to run
+    (measured at batch 256)."""
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        # a comparison, not F.one_hot, whose range check would make the
+        # host wait for the card
+        classes = torch.arange(self.num_embeddings, device=idx.device)
+        return (idx[..., None] == classes).to(self.weight.dtype) @ self.weight
 
 
 class MLP(nn.Sequential):

@@ -3,11 +3,13 @@ graph (counterpart of sln_tpu/models/vae.py:31; reference
 models/Sg2ScVAE_model.py:6-188).
 
 Module names follow the reference state_dict, so `params_from_jax` maps a
-JAX checkpoint's flax tree onto it key by key.
+JAX checkpoint's flax tree onto it key by key, and `params_to_jax` maps a
+state_dict back onto the JAX package's flax layout.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -19,7 +21,7 @@ from torch import nn
 from sln_tpu_torch.config import ModelConfig
 from sln_tpu_torch.data.batch import SceneBatch
 from sln_tpu_torch.models.graph import GraphTripleConvNet
-from sln_tpu_torch.models.layers import MLP
+from sln_tpu_torch.models.layers import MLP, MaskedBatchNorm, OneHotEmbedding
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -31,23 +33,23 @@ class Sg2ScVAE(nn.Module):
         super().__init__()
         self.cfg = c = cfg
         e = c.embedding_dim
-        self.obj_embeddings_ec = nn.Embedding(c.num_objs + 1,
-                                              c.obj_embedding_dim)
-        self.pred_embeddings_ec = nn.Embedding(c.num_preds, 2 * e)
-        self.obj_embeddings_dc = nn.Embedding(c.num_objs + 1,
-                                              c.obj_embedding_dim)
-        self.pred_embeddings_dc = nn.Embedding(
+        self.obj_embeddings_ec = OneHotEmbedding(c.num_objs + 1,
+                                                 c.obj_embedding_dim)
+        self.pred_embeddings_ec = OneHotEmbedding(c.num_preds, 2 * e)
+        self.obj_embeddings_dc = OneHotEmbedding(c.num_objs + 1,
+                                                 c.obj_embedding_dim)
+        self.pred_embeddings_dc = OneHotEmbedding(
             c.num_preds, 2 * e if c.decoder_cat else e)
         if c.use_attr:
-            self.attr_embedding_ec = nn.Embedding(c.num_attrs,
-                                                  c.attr_embedding_dim)
-            self.attr_embedding_dc = nn.Embedding(c.num_attrs,
-                                                  c.attr_embedding_dim)
+            self.attr_embedding_ec = OneHotEmbedding(c.num_attrs,
+                                                     c.attr_embedding_dim)
+            self.attr_embedding_dc = OneHotEmbedding(c.num_attrs,
+                                                     c.attr_embedding_dim)
         self.box_embeddings = nn.Linear(c.box_dim, c.box_embedding_dim)
         nn.init.kaiming_normal_(self.box_embeddings.weight)
         nn.init.zeros_(self.box_embeddings.bias)
-        self.angle_embeddings = nn.Embedding(c.num_angles,
-                                             c.angle_embedding_dim)
+        self.angle_embeddings = OneHotEmbedding(c.num_angles,
+                                                c.angle_embedding_dim)
 
         bn = c.mlp_normalization
         hid = c.gconv_hidden_dim
@@ -122,21 +124,29 @@ class Sg2ScVAE(nn.Module):
         return boxes_pred, angle_logprobs.reshape(B, O, -1)
 
     def forward(self, batch: SceneBatch,
-                generator: Optional[torch.Generator] = None):
-        """Full VAE pass: z = mu + eps * std with eps from `generator`
-        (z = mu when it is None)."""
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        """Full VAE pass: z = mu + eps * std, with eps = `noise` or drawn
+        from `generator`; z = mu when neither is given, and always under
+        use_ae (the JAX package's vae.py:178)."""
         mu, logvar = self.encode(batch)
-        z = mu if generator is None else reparameterize(mu, logvar,
-                                                        generator)
+        if self.cfg.use_ae or (generator is None and noise is None):
+            z = mu
+        else:
+            z = reparameterize(mu, logvar, generator, noise)
         boxes_pred, angle_logprobs = self.decode(z, batch)
         return mu, logvar, boxes_pred, angle_logprobs
 
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
-                   generator: torch.Generator) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mu + eps * exp(logvar / 2), eps standard normal: given, or drawn
+    from `generator`."""
     std = torch.exp(0.5 * logvar)
-    eps = torch.randn(std.shape, generator=generator, device=std.device,
-                      dtype=std.dtype)
+    if eps is None:
+        eps = torch.randn(std.shape, generator=generator, device=std.device,
+                          dtype=std.dtype)
     return mu + eps * std
 
 
@@ -198,3 +208,77 @@ def params_from_jax(model_state: Mapping) -> Dict[str, torch.Tensor]:
             sd[".".join(names + ["num_batches_tracked"])] = torch.tensor(
                 0, dtype=torch.long)
     return sd
+
+
+@functools.lru_cache(maxsize=8)
+def _module_kinds(model_cfg: ModelConfig) -> Dict[str, type]:
+    """Module path -> module class of Sg2ScVAE(model_cfg), built on the
+    meta device (no memory, no random draws)."""
+    with torch.device("meta"):
+        skeleton = Sg2ScVAE(model_cfg)
+    return {name: type(m) for name, m in skeleton.named_modules()}
+
+
+def jax_path(name: str, model_cfg: ModelConfig
+             ) -> Optional[Tuple[str, Tuple[str, ...], bool]]:
+    """A state_dict key -> (flax collection, path in it, transpose), the
+    inverse of params_from_jax's naming; None for num_batches_tracked,
+    which the flax layout does not hold."""
+    kinds = _module_kinds(model_cfg)
+    parts = name.split(".")
+    owner, leaf = ".".join(parts[:-1]), parts[-1]
+    kind = kinds[owner]
+    if leaf == "num_batches_tracked":
+        return None
+    per_stage = 3 if model_cfg.mlp_normalization == "batch" else 2
+    path = []
+    for i, part in enumerate(parts[:-1]):
+        parent = ".".join(parts[:i])
+        if part.isdigit() and kinds.get(parent) is MLP:
+            sub = kinds[".".join(parts[:i + 1])]
+            stage = int(part) // per_stage
+            path.append(f"dense_{stage}" if sub is nn.Linear
+                        else f"bn_{stage}")
+        elif part.isdigit() and parts[i - 1] == "gconvs":
+            # gconvs.i -> gconv_i
+            path[-1] = ("gconv_shared" if model_cfg.gconv_mode == "recurrent"
+                        else f"gconv_{part}")
+        else:
+            path.append(part)
+    if kind is MaskedBatchNorm:
+        collection, flax_leaf = {
+            "weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"),
+            "running_var": ("batch_stats", "var")}[leaf]
+    elif issubclass(kind, nn.Embedding):
+        collection, flax_leaf = "params", "embedding"
+    elif kind is nn.Linear:
+        collection, flax_leaf = "params", {"weight": "kernel",
+                                           "bias": "bias"}[leaf]
+    else:
+        raise KeyError(f"no flax counterpart for {name}")
+    return collection, tuple(path) + (flax_leaf,), flax_leaf == "kernel"
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                  model_cfg: ModelConfig) -> Dict[str, Dict]:
+    """A Sg2ScVAE state_dict -> {"params", "batch_stats"} flax-layout trees
+    of float32 numpy arrays, the exact inverse of params_from_jax: Dense
+    kernels transposed back to (in, out), Sequential indices back to
+    dense_i / bn_i, gconvs.i to gconv_i (gconv_shared in recurrent mode);
+    num_batches_tracked is dropped. A state_dict with only parameters (an
+    Adam moment, say) gives an empty batch_stats."""
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, value in state_dict.items():
+        where = jax_path(name, model_cfg)
+        if where is None:
+            continue
+        collection, path, transpose = where
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        node = trees[collection]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        if path[-1] in node:
+            raise KeyError(f"two state_dict keys map onto {'/'.join(path)}")
+        node[path[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
+    return trees

@@ -68,6 +68,7 @@ def parse_args(argv=None):
     p.add_argument("--gconv_mode", default="feedforward")
     p.add_argument("--gconv_num_layers", default=5, type=int)
     p.add_argument("--mlp_normalization", default="batch", type=str)
+    p.add_argument("--use_AE", default=False, type=bool_flag)
     p.add_argument("--decoder_cat", default=True, type=bool_flag)
     p.add_argument("--train_3d", default=True, type=bool_flag)
     p.add_argument("--use_attr_30", default=True, type=bool_flag)
@@ -96,7 +97,7 @@ def build_cfg(args):
                           gconv_mode=args.gconv_mode,
                           mlp_normalization=args.mlp_normalization,
                           decoder_cat=args.decoder_cat,
-                          train_3d=args.train_3d),
+                          use_ae=args.use_AE, train_3d=args.train_3d),
         data=DataConfig(max_objects=args.max_objects,
                         max_triples=args.max_objects * 3,
                         max_on_rels=args.max_objects,

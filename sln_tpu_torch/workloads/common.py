@@ -4,7 +4,6 @@
 from __future__ import annotations
 
 import os
-import pickle
 from typing import Dict, Tuple, Union
 
 import numpy as np
@@ -14,6 +13,8 @@ from sln_tpu_torch.config import Config
 from sln_tpu_torch.data import synthetic, tensorize
 from sln_tpu_torch.data.augment import SizeInfo
 from sln_tpu_torch.models.vae import Sg2ScVAE, params_from_jax
+from sln_tpu_torch.train.checkpoint import (latest_path, load_checkpoint,
+                                            reference_pt_path)
 
 
 def load_arrays(path_or_synthetic: Union[str, int], cfg: Config, device,
@@ -33,25 +34,11 @@ def load_arrays(path_or_synthetic: Union[str, int], cfg: Config, device,
     return arrays, size_info
 
 
-def checkpoint_path(output_dir: str, name: str) -> str:
-    """Where training leaves its latest checkpoint (the JAX package's
-    train/checkpoint.py latest_path)."""
-    return os.path.join(output_dir, f"latest_{name}_with_model.ckpt")
-
-
-def reference_pt_path(output_dir: str, name: str) -> str:
-    """Where a checkpoint of the reference PyTorch trainer sits
-    (latest_<name>_with_model.pt; the JAX package's
-    train/checkpoint.py reference_pt_path)."""
-    return os.path.join(output_dir, f"latest_{name}_with_model.pt")
-
-
 def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A JAX `.ckpt` (a pickle of numpy trees, written by this project's
-    trainer) -> Sg2ScVAE state_dict."""
-    with open(path, "rb") as f:
-        ckpt = pickle.load(f)
-    return params_from_jax(ckpt["model_state"])
+    """A `.ckpt` of either trainer (a pickle of numpy trees in the JAX
+    package's schema; train/checkpoint.py load_checkpoint reads it without
+    JAX) -> Sg2ScVAE state_dict."""
+    return params_from_jax(load_checkpoint(path)["model_state"])
 
 
 def restore_model(cfg: Config, device, allow_random: bool = False
@@ -61,7 +48,7 @@ def restore_model(cfg: Config, device, allow_random: bool = False
     directory (its state_dict loads as it is, strictly), else seeded
     random weights when allow_random is set."""
     train = cfg.train
-    path = checkpoint_path(train.output_dir, train.checkpoint_name)
+    path = latest_path(train.output_dir, train.checkpoint_name)
     pt_path = reference_pt_path(train.output_dir, train.checkpoint_name)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)

@@ -59,12 +59,16 @@ def test_every_module_imports_with_jax_blocked():
         "sln_tpu_torch.__path__, 'sln_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 20
+    for module in ("losses", "loop", "checkpoint", "metrics", "cli",
+                   "__main__"):
+        assert f"sln_tpu_torch.train.{module}" in names
 
 
 def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path):
@@ -78,6 +82,16 @@ def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path):
         entry.main(["--fine_tune", "--synthetic", "8",
                     "--allow_random_weights", "--test_dir", str(tmp_path)])
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_train_entry_point_defaults_to_the_card(monkeypatch, tmp_path):
+    from sln_tpu_torch.train import cli
+
+    assert cli.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--synthetic", "8", "--num_iterations", "1",
+                  "--output_dir", str(tmp_path)])
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
