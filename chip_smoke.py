@@ -55,19 +55,35 @@ Phases, each printing a line as it ends:
               committed checkpoint's, and the quality cell on the result
               (without the cached-posterior comparison: another model has
               another posterior), acc_pred >= 0.870 and l1_pred <= 0.1115
-  7. times    active chunks per tile and work items at 96 px / 8 rooms and
+  7. spade    SPADE shading on the card at full width (ngf 64, 256 px, nz
+              256) from artifacts/spade_gan.ckpt, named explicitly so a
+              missing file fails: its load; the generator on one held-out
+              room and 2 z, card against CPU (fp32, max abs 1e-3 on the
+              tanh output) and the same bits twice on the card;
+              `python -m sln_tpu_torch.test --gan_shade` through its main
+              (4 val rooms x 50 z = 200 PNGs of 256 x 256 x 3, two forward
+              launches per rendered room); the quality cell of
+              bench.py:426-454 (8 held-out rooms, seed 19, graph keys from
+              100) at three z seeds, PSNR and L1 within bands around the
+              JAX package's 28.39 dB / 0.0425; and the serving rate
+              (seg_mods once per room, then 5 decode chunks of 10 z; CUDA
+              events) with seg_mods' and one decode chunk's times beside
+              their conv-FLOP bounds, the decode on cuDNN's convs beside
+              it, and the profile of two rooms
+  8. times    active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
               8-room shapes and both kernels' at 256 px (CUDA events),
               beside each kernel's bound; each kernel's device time split
               between its launches (torch.profiler)
-  8. profile  torch.profiler over three 8-room refine steps: device busy
+  9. profile  torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
-Then one JSON line of kernel records, the refine, sampling and train lines,
-the card's nvidia-smi line, and as the last line {"ok": true, "device":
-{...}}. Any failed phase raises, so the script exits non-zero and prints no
-result. All outputs go to a temporary directory that is removed at the end.
+Then one JSON line of kernel records, the refine, sampling, train and spade
+lines, the card's nvidia-smi line, and as the last line {"ok": true,
+"device": {...}}. Any failed phase raises, so the script exits non-zero and
+prints no result. All outputs go to a temporary directory that is removed at
+the end.
 """
 
 from __future__ import annotations
@@ -81,9 +97,11 @@ import os
 import pickle
 import re
 import shutil
+import struct
 import subprocess
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -96,7 +114,7 @@ from sln_tpu_torch.render import assets, scene as scene_lib
 from sln_tpu_torch.render import rasterizer_cuda as rc
 from sln_tpu_torch.train import checkpoint as train_ckpt
 from sln_tpu_torch.train import cli as train_cli, loop as train_loop
-from sln_tpu_torch.workloads import acc_l1_std, common, heatmap
+from sln_tpu_torch.workloads import acc_l1_std, common, gan_shade, heatmap
 from sln_tpu_torch.workloads import posterior, refine
 
 # artifacts/latest_bench_with_model.ckpt
@@ -129,6 +147,14 @@ JAX_POSTERIOR = "artifacts/mean_cov.pkl"
 POSTERIOR_BOUNDS = {"mean max abs": 0.01, "cov rel frobenius": 0.2}
 QUALITY_BANDS = {"acc_pred": (0.870, 0.895), "l1_pred": (0.1070, 0.1115),
                  "std_pos": (0.0021, 0.0029)}
+# the shading phase: the committed generator, and bands around the JAX
+# package's quality cell (bench.py:426-454: 28.39 dB PSNR, L1 0.0425 over
+# 8 held-out rooms, one z each); the port's z come from torch.Generators
+# seeded with each of SPADE_Z_SEEDS
+SPADE_CHECKPOINT = "artifacts/spade_gan.ckpt"
+SPADE_BANDS = {"psnr": (28.0, 28.8), "l1": (0.040, 0.045)}
+SPADE_Z_SEEDS = (3, 4, 5)
+SPADE_ROOMS = 4         # val rooms through --gan_shade, 50 z each
 
 
 @contextlib.contextmanager
@@ -844,6 +870,189 @@ def train_phase(tmp: str, device, smi: str, recipe: bool) -> dict:
     return result
 
 
+def png_shape(path: str):
+    """(height, width, channels) of an 8-bit RGB PNG, read with the
+    standard library; raises unless its pixel data decompresses to
+    exactly that size."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, color) != (8, 2) or len(zlib.decompress(
+            chunks[b"IDAT"])) != h * (1 + 3 * w):
+        raise AssertionError(f"{path}: not 8-bit RGB of {w} x {h}")
+    return h, w, 3
+
+
+def conv_flops(model, fn) -> float:
+    """The operations (FMA = 2) of every Conv2d and Linear that fn runs,
+    counted from their shapes."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            kh, kw = mod.kernel_size
+            total[0] += (2 * out.numel() * mod.in_channels // mod.groups
+                         * kh * kw)
+        else:
+            total[0] += 2 * out.numel() * mod.in_features
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return float(total[0])
+
+
+def spade_phase(cfg, tmp: str, device, smi: str) -> dict:
+    """SPADE shading on the card; returns its numbers and the forward
+    kernel's launches on the --gan_shade run."""
+    with phase("spade"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = gan_shade.make_spade_model(cfg, SPADE_CHECKPOINT, device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        sp = cfg.spade
+        if (model.ngf, model.crop_size, model.nz) != (sp.ngf, sp.crop_size,
+                                                      sp.nz):
+            raise AssertionError(f"{SPADE_CHECKPOINT}: ngf {model.ngf}, "
+                                 f"crop {model.crop_size}, nz {model.nz}")
+        print(f"  {SPADE_CHECKPOINT}: {n_params} parameters (float16 -> "
+              f"float32), loaded onto the card in {load_s:.2f} s",
+              flush=True)
+
+        # the quality cell's held-out rooms, rendered by the port
+        segs = gan_shade.render_spade_inputs(8, cfg, model.crop_size,
+                                             synthetic_seed=19,
+                                             key_offset=100, device=device)
+        seg1 = segs[:1]
+        z2 = torch.randn(2, model.nz, device=device,
+                         generator=torch.Generator(device).manual_seed(0))
+        with torch.inference_mode():
+            runs = [model.decode(model.seg_mods(seg1), z2) for _ in range(2)]
+            cpu_model = copy.deepcopy(model).cpu()
+            on_cpu = cpu_model.decode(cpu_model.seg_mods(seg1.cpu()),
+                                      z2.cpu())
+        del cpu_model
+        err = max_err(runs[0].cpu(), on_cpu)
+        print(f"  generator, 1 room x 2 z at {model.crop_size} px: card vs "
+              f"CPU max abs err {err:.3e} (bound 1e-3); two runs on the card "
+              f"{'equal' if torch.equal(*runs) else 'DIFFER'}", flush=True)
+        if not err <= 1e-3:
+            raise AssertionError(f"generator card vs CPU {err} > 1e-3")
+        if not torch.equal(*runs):
+            raise AssertionError("two generator runs on the card differ")
+
+        # the entry point: 4 val rooms x 50 z
+        out_root = os.path.join(tmp, "spade")
+        rc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = entry.main([
+            "--gan_shade", "--synthetic", "32",
+            "--output_dir", CHECKPOINT.output_dir,
+            "--checkpoint_name", CHECKPOINT.checkpoint_name,
+            "--test_dir", out_root, "--spade_checkpoint", SPADE_CHECKPOINT,
+            "--device", device.type])
+        torch.cuda.synchronize()
+        shade_s = time.perf_counter() - t0
+        launches = rc.FWD_LAUNCHES
+        print(f"  --gan_shade: {len(paths)} PNGs in {shade_s:.1f} s "
+              f"(setup, weights, render, shading, PNG writes); rasterizer "
+              f"launches fwd {launches}, bwd {rc.BWD_LAUNCHES}", flush=True)
+        out_dir = os.path.join(out_root, "data", "SPADE_out")
+        if len(paths) != SPADE_ROOMS * 50 or sorted(paths) != sorted(
+                os.path.join(out_dir, f) for f in os.listdir(out_dir)):
+            raise AssertionError(f"--gan_shade wrote {len(paths)} PNGs")
+        shapes = {png_shape(p) for p in paths}
+        if shapes != {(model.crop_size, model.crop_size, 3)}:
+            raise AssertionError(f"--gan_shade PNG shapes {shapes}")
+        if launches != 2 * SPADE_ROOMS or rc.BWD_LAUNCHES:
+            raise AssertionError(f"--gan_shade: fwd {launches} / bwd "
+                                 f"{rc.BWD_LAUNCHES} launches for "
+                                 f"{SPADE_ROOMS} rooms")
+
+        # the quality cell: PSNR / L1 against the shading target
+        metrics = gan_shade.make_shading_metrics(model)
+        target = gan_shade.shading_target(segs)
+        quality = {}
+        for seed in SPADE_Z_SEEDS:
+            z = torch.randn(len(segs), model.nz, device=device,
+                            generator=torch.Generator(device).manual_seed(
+                                seed))
+            l1, psnr, _ = metrics(segs, target, z)
+            quality[seed] = {"psnr": psnr, "l1": l1}
+        print("  quality (8 held-out rooms, one z each): " + "; ".join(
+            f"z seed {k}: PSNR {v['psnr']:.4f} dB, L1 {v['l1']:.5f}"
+            for k, v in quality.items()), flush=True)
+        for seed, q in quality.items():
+            for k, (lo, hi) in SPADE_BANDS.items():
+                if not lo <= q[k] <= hi:
+                    raise AssertionError(f"z seed {seed}: {k} {q[k]} "
+                                         f"outside [{lo}, {hi}]")
+
+        # the serving rate: seg_mods once per room, 5 chunks of 10 z
+        zs = gan_shade.draw_zs(50, model.nz, device=device)
+        with torch.inference_mode():
+            def room(seg):
+                mods = model.seg_mods(seg)
+                for z in zs:
+                    model.decode(mods, z)
+            room(seg1)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(len(segs)):
+                room(segs[i:i + 1])
+            end.record()
+            torch.cuda.synchronize()
+            room_ms = start.elapsed_time(end) / len(segs)
+            mods = model.seg_mods(seg1)
+            seg_ms = event_ms(lambda: model.seg_mods(seg1), 10, 2)
+            dec_ms = event_ms(lambda: model.decode(mods, zs[0]), 10, 2)
+            seg_flops = conv_flops(model, lambda: model.seg_mods(seg1))
+            dec_flops = conv_flops(model, lambda: model.decode(mods, zs[0]))
+            # the same decode with cuDNN's convolutions (fp32, deterministic
+            # algorithms), which the generator does not use: see
+            # spade/generator.py fp32_math
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=True,
+                                            allow_tf32=False):
+                cudnn_ms = event_ms(lambda: type(model).decode.__wrapped__(
+                    model, mods, zs[0]), 3, 1)
+            prof = profile_steps(lambda: room(seg1), 2,
+                                 "shading room (seg_mods + 5 decodes of "
+                                 "10 z)")
+        rate = 50 / (room_ms / 1e3)
+        seg_bound = seg_flops / PEAK_FP32_FLOPS * 1e3
+        dec_bound = dec_flops / PEAK_FP32_FLOPS * 1e3
+        print(f"  serving: {room_ms:.3f} ms per room of 50 z (CUDA events, "
+              f"{len(segs)} rooms) = {rate:.1f} imgs/s; seg_mods "
+              f"{seg_ms:.3f} ms (bound {seg_bound:.3f}: "
+              f"{seg_flops / 1e9:.1f} GFLOP at the fp32 peak), decode of 10 "
+              f"z {dec_ms:.3f} ms (bound {dec_bound:.3f}: "
+              f"{dec_flops / 1e9:.1f} GFLOP; with cuDNN's deterministic "
+              f"fp32 convs {cudnn_ms:.3f} ms), on {smi}", flush=True)
+    return {"parameters": n_params, "load_s": load_s,
+            "card_vs_cpu_max_abs_err": err, "gan_shade_s": shade_s,
+            "gan_shade_pngs": len(paths), "fwd_launches": launches,
+            "quality": quality, "room_ms": room_ms,
+            "imgs_per_sec_device": rate, "seg_mods_ms": seg_ms,
+            "seg_mods_bound_ms": seg_bound, "decode10_ms": dec_ms,
+            "decode10_bound_ms": dec_bound, "decode10_cudnn_ms": cudnn_ms,
+            "room_profile": prof}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1047,6 +1256,8 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False) -> None:
 
     quality = sampling_phase(cfg, tmp, device, smi)
     training = train_phase(tmp, device, smi, recipe)
+    shading = spade_phase(cfg, tmp, device, smi)
+    launches["fwd"] += shading["fwd_launches"]
 
     fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
@@ -1070,6 +1281,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False) -> None:
     print(json.dumps({"refine_ms_per_step": step_ms}))
     print(json.dumps({"sampling": quality}))
     print(json.dumps({"train": training}))
+    print(json.dumps({"spade": shading}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

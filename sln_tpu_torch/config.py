@@ -2,7 +2,7 @@
 and the sampling and evaluation workloads read.
 
 Counterpart of sln_tpu/config.py (ModelConfig, DataConfig, CameraConfig,
-RenderConfig, RefineConfig). `RenderConfig.backend` is gone: the
+RenderConfig, RefineConfig, SpadeConfig). `RenderConfig.backend` is gone: the
 rasterizer launches the CUDA kernel for tensors on the card and runs its
 plain PyTorch version for tensors on the CPU (render/rasterizer_cuda.py).
 """
@@ -138,12 +138,29 @@ class RefineConfig:
 
 
 @dataclass(frozen=True)
+class SpadeConfig:
+    """SPADEGenerator4 as loaded at inference (reference
+    testing/test_SPADE_shade.py:9)."""
+
+    semantic_nc: int = 41
+    target_nc: int = 3
+    nz: int = 256
+    ngf: int = 64
+    crop_size: int = 256
+    n_up: str = "normal"              # 'normal' | 'more' | 'most'
+    num_z: int = 50                   # reference test.py:94
+    # only "float32" is ported; bfloat16 convs are ROADMAP item 10
+    compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
     refine: RefineConfig = field(default_factory=RefineConfig)
+    spade: SpadeConfig = field(default_factory=SpadeConfig)
     test_dir: str = "./layouts_out"
 
     def replace(self, **kwargs) -> "Config":

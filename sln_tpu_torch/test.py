@@ -6,6 +6,8 @@ test.py's modes:
     --heat_map             20,000 sampled layouts of one scene graph + PNGs
     --draw_2d              top-down plot of the demo layout
     --fine_tune            render-and-refine
+    --gan_shade            SPADE shading of rendered val rooms, num_z PNGs
+                           per room
 
     python -m sln_tpu_torch.test --measure_acc_l1_std --synthetic 64 \\
         --output_dir artifacts --checkpoint_name bench --test_dir out/
@@ -39,6 +41,7 @@ def parse_args(argv=None):
     p.add_argument("--heat_map", action="store_true")
     p.add_argument("--draw_2d", action="store_true")
     p.add_argument("--fine_tune", action="store_true")
+    p.add_argument("--gan_shade", action="store_true")
     p.add_argument("--suncg_train_dir", default="metadata/data_rot_train.json")
     p.add_argument("--suncg_val_dir", default="metadata/data_rot_val.json")
     p.add_argument("--output_dir", default="./checkpoints")
@@ -61,6 +64,34 @@ def parse_args(argv=None):
                    help="override RefineConfig.num_iters (default 60)")
     p.add_argument("--room_ids", default="", type=str,
                    help="comma-separated room ids for --fine_tune")
+    p.add_argument("--num_z", default=50, type=int,
+                   help="z samples per room for --gan_shade (reference "
+                        "test.py:94)")
+    p.add_argument("--spade_checkpoint", default="", type=str,
+                   help="explicit SPADE generator weights for --gan_shade "
+                        "(.pth = a reference checkpoint, else a shading-"
+                        "trainer pickle); default: "
+                        "<output_dir>/latest_net_G_AB.pth, then the "
+                        "committed artifacts/spade_gan.ckpt (skipped if "
+                        "trained at other dims than --spade_crop/"
+                        "--spade_ngf), then random init")
+    p.add_argument("--spade_crop", default=256, type=int,
+                   help="SPADE render size (reference: 256)")
+    p.add_argument("--spade_ngf", default=64, type=int,
+                   help="SPADE width (reference: 64)")
+    p.add_argument("--spade_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="SPADE compute dtype; only float32 is ported")
+    p.add_argument("--semantic_source", default="rasterizer",
+                   choices=["rasterizer", "blender", "files"],
+                   help="--gan_shade mask/depth source: the rasterizer "
+                        "(default) or existing files in "
+                        "<test_dir>/data/semantic_masks; blender is not "
+                        "ported")
+    # accepted as the root test.py accepts them; the Blender bridge is
+    # not ported (ROADMAP item 8)
+    p.add_argument("--blender_path", default="", type=str)
+    p.add_argument("--blender_script", default="", type=str)
     # the model and data flags of the reference's global Options
     # (options/options.py:18-61); a restored checkpoint's weights must
     # match them, as in the reference
@@ -79,8 +110,8 @@ def parse_args(argv=None):
 def build_cfg(args):
     import dataclasses as dc
 
-    from sln_tpu_torch.config import (DataConfig, ModelConfig, TrainConfig,
-                                      default_config)
+    from sln_tpu_torch.config import (DataConfig, ModelConfig, SpadeConfig,
+                                      TrainConfig, default_config)
     cfg = default_config()
     refine = cfg.refine
     if args.refine_render_size:
@@ -106,6 +137,8 @@ def build_cfg(args):
                         val_path=args.suncg_val_dir),
         train=TrainConfig(output_dir=args.output_dir,
                           checkpoint_name=args.checkpoint_name),
+        spade=SpadeConfig(crop_size=args.spade_crop, ngf=args.spade_ngf,
+                          num_z=args.num_z, compute_dtype=args.spade_dtype),
         test_dir=args.test_dir)
 
 
@@ -145,7 +178,8 @@ DEMO_OBJS = [20, 18, 30, 3, 11, 0]
 def main(argv=None):
     """Returns the workload's result: the output path (--batch_gen,
     --draw_2d), the metrics (--measure_acc_l1_std), the PNG paths
-    (--heat_map) or the per-room loss history (--fine_tune)."""
+    (--heat_map, --gan_shade) or the per-room loss history
+    (--fine_tune)."""
     args = parse_args(argv)
     cfg = build_cfg(args)
     device = resolve_device(args.device)
@@ -212,6 +246,23 @@ def main(argv=None):
         dirs = [os.path.join(base, r) for r in room_ids]
         return refine.finetune_rooms(model, val, size_info, cfg, room_ids,
                                      dirs, device=device)
+
+    if args.gan_shade:
+        from sln_tpu_torch.workloads import gan_shade
+        if args.semantic_source == "blender":
+            raise NotImplementedError(
+                "--semantic_source blender (the Blender mask/depth render) "
+                "is not ported (ROADMAP item 8); use rasterizer or files")
+        _, _, val, size_info = setup(args, cfg, device, train=False)
+        out_dir = os.path.join(args.test_dir, "data", "SPADE_out")
+        semantic_dir = None
+        if args.semantic_source == "files":
+            semantic_dir = os.path.join(args.test_dir, "data",
+                                        "semantic_masks")
+        return gan_shade.run_gan_shade(
+            val, size_info, cfg, num_z=args.num_z, save_dir=out_dir,
+            spade_checkpoint=args.spade_checkpoint or None,
+            semantic_dir=semantic_dir, device=device)
 
     print("No mode selected; see --help")
     return None

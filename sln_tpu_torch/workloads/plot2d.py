@@ -1,5 +1,6 @@
 """Top-down 2D layout plotter (counterpart of sln_tpu/workloads/plot2d.py;
-reference testing/test_plot2d.py:9-141), an own copy of its host code.
+reference testing/test_plot2d.py:9-141), an own copy of its host code, and
+the PNG writer of the shading workload.
 
 Same visual conventions: NYU-40 ScanNet colors, paint order with bed and
 television last, structural classes skipped, rotation about the box center
@@ -8,6 +9,8 @@ by -angle * 2*pi/24, z flipped for display.
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Sequence
 
 import numpy as np
@@ -103,3 +106,24 @@ def plot2d(boxes: Sequence, angles: Sequence, objs: Sequence[int],
     plt.subplots_adjust(left=0.0, right=1.0, top=1.0, bottom=0.0)
     plt.savefig(save_path)
     plt.close(fig)
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG, with the standard library only
+    (the card's machine has no matplotlib or imageio). Its pixels equal
+    those matplotlib's imsave writes for the same array."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, _ = rgb.shape
+    # every scanline starts with filter type 0 (none)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)],
+                         1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
