@@ -4,6 +4,8 @@
     python3 chip_smoke.py                  # every phase, as below
     python3 chip_smoke.py --kernels-only   # device, build, kernels, times
     python3 chip_smoke.py --train-recipe   # every phase, then the recipe
+    python3 chip_smoke.py --spade-recipe   # every phase, then the shading
+                                           # generator's whole recipe
 
 Phases, each printing a line as it ends:
   1. device   the card must be there (else this exits non-zero); prints
@@ -17,7 +19,11 @@ Phases, each printing a line as it ends:
               96 px, one room at 256 px, and a scene whose faces are all
               invalid (every tile's chunk list is empty); the backward
               takes the forward kernel's residuals; forward and backward,
-              each run twice on the same inputs, must give the same bits
+              each run twice on the same inputs, must give the same bits;
+              and the culled kernels against the dense plain
+              soft_rasterize on the shading quality cell's 8 rooms at 256
+              px, whose sliver faces reach far beyond their rows: no
+              class-mask value flipped, depth within TOL["depth"]
   4. main     the render-and-refine path through the port's entry points:
               `python -m sln_tpu_torch.test --fine_tune` (one room, 96 px,
               60 iterations, the committed checkpoint), the batched serving
@@ -70,20 +76,37 @@ Phases, each printing a line as it ends:
               events) with seg_mods' and one decode chunk's times beside
               their conv-FLOP bounds, the decode on cuDNN's convs beside
               it, and the profile of two rooms
-  8. times    active chunks per tile and work items at 96 px / 8 rooms and
+  8. spade_train
+              SPADE GAN training at the committed recipe's width (ngf 64,
+              ndf 64, nz 256, 256 px, batch 8, lambda_l1 50):
+              `python -m sln_tpu_torch.tools.train_spade` through its main,
+              20 steps from scratch on 96 rendered pairs (two forward
+              launches each), evaluated before the first step and at the
+              last: finite losses, held-out L1 falling, the checkpoint and
+              the float16 artifact written outside the repo and shading as
+              the trained generator does, bit for bit; a warm start from
+              artifacts/spade_gan.ckpt evaluated before any step beside its
+              recorded 28.40 dB / 0.0430; one step card against CPU (batch
+              2); one step twice op by op and 10 more steps twice, the same
+              bits; imgs/s at batch 8 beside the step's conv/GEMM bound,
+              peak memory and a profile of two steps; `--mmd` (nef 16) 5
+              steps twice. With --spade-recipe the whole recipe follows: 4
+              chained runs of 750 steps, val PSNR / L1 every 250 beside the
+              committed generator's, and the quality cell on the result
+  9. times    active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
               8-room shapes and both kernels' at 256 px (CUDA events),
               beside each kernel's bound; each kernel's device time split
               between its launches (torch.profiler)
-  9. profile  torch.profiler over three 8-room refine steps: device busy
+  10. profile torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
-Then one JSON line of kernel records, the refine, sampling, train and spade
-lines, the card's nvidia-smi line, and as the last line {"ok": true,
-"device": {...}}. Any failed phase raises, so the script exits non-zero and
-prints no result. All outputs go to a temporary directory that is removed at
-the end.
+Then one JSON line of kernel records, the refine, sampling, train, spade,
+spade_train and culling lines, the card's nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}. Any failed phase raises, so the script
+exits non-zero and prints no result. All outputs go to a temporary directory
+that is removed at the end.
 """
 
 from __future__ import annotations
@@ -111,7 +134,12 @@ from sln_tpu_torch.config import TrainConfig, default_config
 from sln_tpu_torch.data.augment import build_graphs, draw_graph_randomness
 from sln_tpu_torch.models.vae import reparameterize
 from sln_tpu_torch.render import assets, scene as scene_lib
+from sln_tpu_torch.render import rasterizer as raster
 from sln_tpu_torch.render import rasterizer_cuda as rc
+from sln_tpu_torch.spade.discriminator import instance_normed_biases
+from sln_tpu_torch.spade.losses import GanState, make_gan_train_step
+from sln_tpu_torch.spade.spectral import SpectralConv
+from sln_tpu_torch.tools import train_spade
 from sln_tpu_torch.train import checkpoint as train_ckpt
 from sln_tpu_torch.train import cli as train_cli, loop as train_loop
 from sln_tpu_torch.workloads import acc_l1_std, common, gan_shade, heatmap
@@ -198,7 +226,7 @@ def packed_scene(batch, midx, bank, rcfg, drop_scene=None):
     room = scene_lib.room_dims_of(batch.objs, batch.boxes, batch.obj_mask)
     geom = scene_lib.scene_geometry(scene, room, rcfg)
     return rc.prepare_faces(geom, scene_lib.NUM_RENDER_CLASSES,
-                            rcfg.camera.image_size)
+                            rcfg.camera.image_size, rcfg.sigma_px, rcfg.gamma)
 
 
 def max_err(a, b) -> float:
@@ -253,6 +281,52 @@ def compare_kernels(case, packed, S, rcfg, gen):
           "launches",
           flush=True)
     return e_fwd, e_bwd
+
+
+def culled_against_dense(cfg, device) -> dict:
+    """The culled path (sort, pack, cull, the forward kernels) against the
+    dense plain soft_rasterize, on the card, on the shading quality cell's
+    rooms at 256 px (synthetic seed 19, graph keys from 100), whose sliver
+    faces reach far beyond their row spans: no class-mask value flipped at
+    0.5, depth within the kernels' tolerance (TOL["depth"])."""
+    arrays, size_info = common.load_arrays(8, cfg, device, synthetic_seed=19)
+    rcfg, bank_host, bank = gan_shade._render_setup(cfg, 256, device)
+    kw = dict(sigma=rcfg.sigma_px, gamma=rcfg.gamma, z_far=rcfg.z_far)
+    C = scene_lib.NUM_RENDER_CLASSES
+    out = {"depth_max_abs_err": 0.0, "mask_flips": 0, "chunks_per_tile": []}
+    for i in range(8):
+        b = gan_shade._room_batch(arrays, i, size_info, cfg, 100 + i, device)
+        dims = scene_lib.room_dims_of(b.objs, b.boxes, b.obj_mask)
+        abs_boxes = b.boxes * torch.cat([dims, dims], -1)[:, None]
+        midx = torch.as_tensor(assets.retrieve_models(
+            b.objs.cpu().numpy(), abs_boxes.cpu().numpy(), bank_host),
+            device=device)
+        scene = scene_lib.assemble_scene(b.objs, b.boxes, b.angles.float(),
+                                         b.obj_mask, midx, bank)
+        geom = scene_lib.scene_geometry(scene, dims, rcfg)
+        with torch.no_grad():
+            d_k, c_k = rc.soft_rasterize_cuda(geom, C, 256, **kw)
+            d_o, c_o = raster.soft_rasterize(geom, C, 256, **kw)
+        check_close(f"culled vs dense room {i} depth", d_k, d_o,
+                    *TOL["depth"])
+        flips = int(((c_k > 0.5) != (c_o > 0.5)).sum())
+        counts = rc.prepare_faces(geom, C, 256, rcfg.sigma_px,
+                                  rcfg.gamma)[2]
+        out["depth_max_abs_err"] = max(out["depth_max_abs_err"],
+                                       max_err(d_k, d_o))
+        out["mask_flips"] += flips
+        out["chunks_per_tile"].append(float(counts.float().mean()))
+    print(f"  culled kernels vs dense soft_rasterize, 8 quality-cell rooms "
+          f"at 256 px: depth max abs err {out['depth_max_abs_err']:.3e} "
+          f"(rtol {TOL['depth'][0]}, atol {TOL['depth'][1]}), class-mask "
+          f"flips at 0.5: {out['mask_flips']}; active chunks per tile, "
+          f"mean per room: "
+          + ", ".join(f"{c:.3f}" for c in out["chunks_per_tile"]),
+          flush=True)
+    if out["mask_flips"]:
+        raise AssertionError(f"{out['mask_flips']} class-mask values flip "
+                             "between the culled and the dense render")
+    return out
 
 
 def bits_checksum(t: torch.Tensor) -> torch.Tensor:
@@ -891,8 +965,8 @@ def png_shape(path: str):
 
 
 def conv_flops(model, fn) -> float:
-    """The operations (FMA = 2) of every Conv2d and Linear that fn runs,
-    counted from their shapes."""
+    """The operations (FMA = 2) of every Conv2d, SpectralConv and Linear
+    that fn runs, counted from their shapes."""
     total = [0]
 
     def hook(mod, inp, out):
@@ -900,10 +974,13 @@ def conv_flops(model, fn) -> float:
             kh, kw = mod.kernel_size
             total[0] += (2 * out.numel() * mod.in_channels // mod.groups
                          * kh * kw)
+        elif isinstance(mod, SpectralConv):
+            total[0] += 2 * out.numel() * mod.weight[0].numel()
         else:
             total[0] += 2 * out.numel() * mod.in_features
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear,
+                                 SpectralConv))]
     try:
         fn()
     finally:
@@ -1053,6 +1130,357 @@ def spade_phase(cfg, tmp: str, device, smi: str) -> dict:
             "room_profile": prof}
 
 
+# the committed shading generator's recipe (artifacts/spade_gan.ckpt's
+# pickled config): full width, 96 synthetic pairs at 256 px, batch 8, run as
+# 4 chained runs of 750 steps with --resume, evals and saves every 250
+SPADE_RECIPE = ["--synthetic", "96", "--crop", "256", "--ngf", "64",
+                "--ndf", "64", "--nz", "256", "--batch_size", "8",
+                "--lr_g", "1e-4", "--lr_d", "4e-4", "--lambda_l1", "50"]
+SPADE_RECORDED = {"val_psnr": 28.40038998921712,
+                  "val_l1": 0.04302995279431343, "trained_steps": 3000}
+SPADE_TRAIN_STEPS = 20
+SPADE_REPEAT_STEPS = 10
+SPADE_MMD_STEPS = 5
+SPADE_RECIPE_RUNS, SPADE_RECIPE_STEPS = 4, 750
+# card against CPU, one step: losses rtol, gradients' relative error per
+# tensor (norm of the difference over the norm), and parameters after
+# Adam where the gradient is well above rounding (|g| > 1e-6 and > 1e-3 of
+# the tensor's largest): Adam with b1 = 0 moves each weight by about
+# lr sign(g) on step 1, so a gradient near rounding may step either way
+SPADE_STEP_RTOL = 1e-3
+SPADE_GRAD_REL = 1e-3
+
+
+def _gan_copy(trainer, device) -> GanState:
+    """A fresh GanState (new Adams) from a copy of the trainer's networks
+    on `device`."""
+    st, args = trainer.state, trainer.args
+    return GanState(copy.deepcopy(st.generator).to(device),
+                    copy.deepcopy(st.discriminator).to(device), args.lr_g,
+                    args.lr_d)
+
+
+def _check_finite(name, hist):
+    for k, v in hist.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{name} {k}: non-finite {v}")
+
+
+def _outside_repo(path: str) -> bool:
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return not os.path.realpath(path).startswith(os.path.realpath(repo)
+                                                 + os.sep)
+
+
+def spade_train_phase(cfg, tmp: str, device, smi: str,
+                      recipe: bool) -> dict:
+    """SPADE GAN training on the card at the committed recipe's width;
+    returns its numbers and the forward kernel's launches on the entry
+    point's run."""
+    cpu = torch.device("cpu")
+    res = {}
+    with phase("spade_train"):
+        root = os.path.join(tmp, "spade_train")
+        out_dir, art = os.path.join(root, "run"), os.path.join(root,
+                                                               "serving.ckpt")
+        argv = [*SPADE_RECIPE, "--steps", str(SPADE_TRAIN_STEPS),
+                "--eval_every", str(SPADE_TRAIN_STEPS), "--print_every", "5",
+                "--output_dir", out_dir, "--artifact", art, "--device",
+                device.type]
+        rc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = train_spade.main(argv, eval_before=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, n_pairs = rc.FWD_LAUNCHES, trainer.val_split["n_total"]
+        print(f"  pairs: {n_pairs} rooms rendered at {trainer.args.crop} px "
+              f"in {trainer.data_s:.1f} s; rasterizer launches fwd {launches}, "
+              f"bwd {rc.BWD_LAUNCHES}", flush=True)
+        if launches != 2 * n_pairs or rc.BWD_LAUNCHES:
+            raise AssertionError(f"rendering {n_pairs} pairs: fwd "
+                                 f"{launches} / bwd {rc.BWD_LAUNCHES}")
+        hist = trainer.loss_history()
+        _check_finite("spade train", hist)
+        (_, l1_0, psnr_0), (t_last, l1_n, psnr_n) = (trainer.evals[0],
+                                                     trainer.evals[-1])
+        print(f"  python -m sln_tpu_torch.tools.train_spade "
+              f"{' '.join(argv[:-6])}: {run_s:.1f} s; d_loss "
+              f"{hist['d_loss'][0]:.4f} -> {hist['d_loss'][-1]:.4f}, g_loss "
+              f"{hist['g_loss'][0]:.4f} -> {hist['g_loss'][-1]:.4f}; "
+              f"held-out ({trainer.n_val} rooms) L1 {l1_0:.5f} / PSNR "
+              f"{psnr_0:.3f} dB at step 0 -> {l1_n:.5f} / {psnr_n:.3f} dB at "
+              f"step {t_last}", flush=True)
+        if not l1_n < l1_0:
+            raise AssertionError(f"held-out L1 did not fall: {l1_0} -> "
+                                 f"{l1_n}")
+        ckpt = os.path.join(out_dir, "spade_gan.ckpt")
+        for path in (ckpt, art):
+            if not os.path.isfile(path) or not _outside_repo(path):
+                raise AssertionError(f"the trainer wrote no {path} outside "
+                                     "the repo")
+        # what it wrote shades as the trained generator does, bit for bit:
+        # the checkpoint (float32) and the serving artifact (float16)
+        G = trainer.state.generator.eval()
+        seg1 = trainer.val_segs[:1]
+        z1 = torch.randn(1, G.nz, device=device,
+                         generator=torch.Generator(device).manual_seed(11))
+        G16 = copy.deepcopy(G)
+        with torch.no_grad():
+            for p in G16.parameters():
+                p.copy_(p.half().float())
+        with torch.inference_mode():
+            want, want16 = G(seg1, z1), G16(seg1, z1)
+            got = gan_shade.make_spade_model(cfg, ckpt, device)(seg1, z1)
+            got16 = gan_shade.make_spade_model(cfg, art, device)(seg1, z1)
+        del G16
+        if not (torch.equal(got, want) and torch.equal(got16, want16)):
+            raise AssertionError("a reloaded checkpoint or artifact shades "
+                                 "otherwise than the trained generator")
+        print(f"  wrote {ckpt} and {art} (outside the repo); "
+              "make_spade_model shades a held-out room with each as the "
+              "trained generator does (the artifact: with its weights "
+              "rounded to float16), bit for bit", flush=True)
+        res.update(run_s=run_s, pairs_s=trainer.data_s, fwd_launches=launches,
+                   evals=trainer.evals, first_losses={
+                       k: float(v[0]) for k, v in hist.items()},
+                   last_losses={k: float(v[-1]) for k, v in hist.items()})
+
+        # warm start from the committed generator, evaluated before any step
+        warm = train_spade.main(
+            [*SPADE_RECIPE, "--steps", "0", "--eval_every", "250",
+             "--output_dir", os.path.join(root, "warm"), "--resume",
+             SPADE_CHECKPOINT, "--device", device.type], eval_before=True)
+        _, l1_w, psnr_w = warm.evals[0]
+        print(f"  --resume {SPADE_CHECKPOINT}, before any step, on the "
+              f"trainer's held-out split ({warm.n_val} rooms): val PSNR "
+              f"{psnr_w:.4f} dB, val L1 {l1_w:.5f} (recorded in the "
+              f"checkpoint: {SPADE_RECORDED['val_psnr']:.2f} dB, "
+              f"{SPADE_RECORDED['val_l1']:.4f})", flush=True)
+        res["warm_start"] = {"val_psnr": psnr_w, "val_l1": l1_w}
+        del warm
+
+        # one step, card against CPU, from the trained state, batch 2
+        seg2, rgb2 = trainer.val_segs[:2], trainer.val_rgbs[:2]
+        z2 = torch.randn(2, G.nz, device=device,
+                         generator=torch.Generator(device).manual_seed(12))
+        skip = {f"d.{n}" for n in instance_normed_biases(
+            trainer.state.discriminator)}
+        lrs = {"d": trainer.args.lr_d, "g": trainer.args.lr_g}
+        runs = {}
+        for name, dev in (("card", device), ("cpu", cpu)):
+            st = _gan_copy(trainer, dev)
+            nets = (("d", st.discriminator), ("g", st.generator))
+            t0 = time.perf_counter()
+            losses = make_gan_train_step(st, lambda_l1=50.0)(
+                seg2.to(dev), rgb2.to(dev), z2.to(dev))
+            losses = {k: float(v) for k, v in losses.items()}
+            runs[name] = (losses, {f"{k}.{n}": (p.grad.cpu(), p.detach().cpu())
+                                   for k, m in nets
+                                   for n, p in m.named_parameters()},
+                          time.perf_counter() - t0)
+            del st
+        (l_k, t_k, s_k), (l_c, t_c, s_c) = runs["card"], runs["cpu"]
+        loss_rel = max(abs(l_k[k] - l_c[k]) / abs(l_c[k]) for k in l_c)
+        grad_rel, n_cmp, p_err = 0.0, 0, 0.0
+        for key, (g, p) in t_c.items():
+            if key in skip:
+                continue
+            g_card, p_card = t_k[key]
+            grad_rel = max(grad_rel, float((g_card - g).norm()
+                                           / g.norm().clamp(min=1e-30)))
+            sel = (g.abs() > 1e-6) & (g.abs() > 1e-3 * g.abs().max())
+            n_cmp += int(sel.sum())
+            if bool(sel.any()):
+                err = float((p_card - p)[sel].abs().max())
+                p_err = max(p_err, err)
+                bound_p = 2e-3 * lrs[key[0]] + 1e-7
+                if err > bound_p:
+                    raise AssertionError(f"{key} after Adam: card vs CPU "
+                                         f"{err} beyond {bound_p}")
+        print(f"  one step card vs CPU (full width, batch 2, from the "
+              f"trained state): d_loss {l_k['d_loss']:.7f} vs "
+              f"{l_c['d_loss']:.7f}, g_loss {l_k['g_loss']:.7f} vs "
+              f"{l_c['g_loss']:.7f} (max rel {loss_rel:.2e}, rtol "
+              f"{SPADE_STEP_RTOL}); gradients of {len(t_c) - len(skip)} "
+              f"tensors (not the {len(skip)} instance-normed conv biases, "
+              f"whose gradient is rounding alone) max relative error "
+              f"{grad_rel:.2e} (bound {SPADE_GRAD_REL}); parameters after "
+              f"Adam at the {n_cmp} weights whose gradient is well above "
+              f"rounding: max abs diff {p_err:.2e} (bound 2e-3 lr); card "
+              f"{s_k:.2f} s, CPU {s_c:.2f} s", flush=True)
+        if loss_rel > SPADE_STEP_RTOL or grad_rel > SPADE_GRAD_REL:
+            raise AssertionError("the SPADE step on the card differs from "
+                                 "the CPU's")
+        res["card_vs_cpu"] = {"losses_card": l_k, "losses_cpu": l_c,
+                              "loss_rel": loss_rel, "grad_rel": grad_rel,
+                              "params_compared": n_cmp,
+                              "param_max_abs_diff": p_err, "cpu_s": s_c}
+        del runs, t_k, t_c
+
+        # the same bits twice: one step op by op, then REPEAT_STEPS steps
+        B = trainer.args.batch_size
+        idx8 = torch.arange(B, device=device)
+        seg8, rgb8 = trainer.segs[idx8], trainer.rgbs[idx8]
+        z8 = torch.randn(B, G.nz, device=device,
+                         generator=torch.Generator(device).manual_seed(13))
+        traces, finals = [], []
+        for _ in range(2):
+            st = _gan_copy(trainer, device)
+            step = make_gan_train_step(st, lambda_l1=50.0)
+            with op_trace_mode() as trace:
+                losses = step(seg8, rgb8, z8)
+            torch.cuda.synchronize()
+            traces.append((trace, list(losses.values())))
+            gen = torch.Generator(device).manual_seed(14)
+            hist = []
+            for _ in range(SPADE_REPEAT_STEPS):
+                idx = torch.randint(0, len(trainer.segs), (B,),
+                                    generator=gen, device=device)
+                z = torch.randn(B, G.nz, generator=gen, device=device)
+                hist += list(step(trainer.segs[idx], trainer.rgbs[idx],
+                                  z).values())
+            finals.append((torch.stack(hist), st.state_tensors()))
+            del st, step
+        (t1, l1s), (t2, l2s) = traces
+        if t1.names != t2.names:
+            raise AssertionError("two identical SPADE steps ran different "
+                                 "ops")
+        differ = (torch.stack(t1.sums) != torch.stack(t2.sums)).nonzero()
+        first = t1.names[int(differ[0])] if len(differ) else "none"
+        same_losses = all(torch.equal(a, b) for a, b in zip(l1s, l2s))
+        same_hist = torch.equal(finals[0][0], finals[1][0])
+        same_state = (len(finals[0][1]) == len(finals[1][1]) and all(
+            torch.equal(a, b) for a, b in zip(finals[0][1], finals[1][1])))
+        print(f"  one SPADE step twice (batch {B}): {len(t1.names)} op "
+              f"outputs compared, {len(differ)} differ, first: {first}; "
+              f"losses {'equal' if same_losses else 'DIFFER'}; "
+              f"{SPADE_REPEAT_STEPS} more steps twice: losses "
+              f"{'equal' if same_hist else 'DIFFER'}, parameters, spectral "
+              f"vectors and Adam moments "
+              f"({len(finals[0][1])} tensors) "
+              f"{'equal' if same_state else 'DIFFER'}", flush=True)
+        if len(differ) or not (same_losses and same_hist and same_state):
+            raise AssertionError("SPADE training is not bitwise "
+                                 "reproducible")
+        res["op_outputs_compared"] = len(t1.names)
+        del traces, finals, t1, t2
+
+        # speed at batch 8: CUDA events, warmed up, best of two windows
+        st = _gan_copy(trainer, device)
+        step = make_gan_train_step(st, lambda_l1=50.0)
+        for _ in range(2):
+            step(seg8, rgb8, z8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        windows = [event_ms(lambda: step(seg8, rgb8, z8), SPADE_REPEAT_STEPS,
+                            0) for _ in range(2)]
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        rate = B / (min(windows) / 1e3)
+        with torch.no_grad():
+            g_fwd = conv_flops(st.generator, lambda: st.generator(seg8, z8))
+            d_fwd = conv_flops(st.discriminator, lambda: st.discriminator(
+                torch.cat([seg8, rgb8], 1)))
+        # D step: G forward, D forward x2 and its backward (weights and
+        # inputs, 2x); G step: G forward and backward (2x), D forward x2 and
+        # the fake's input gradient (1x)
+        step_flops = 4 * g_fwd + 9 * d_fwd
+        bound_ms = step_flops / PEAK_FP32_FLOPS * 1e3
+        prof = profile_steps(lambda: step(seg8, rgb8, z8), 2,
+                             f"SPADE GAN step (batch {B}, 256 px)")
+        print(f"  train step at batch {B}: {windows[0]:.3f}, "
+              f"{windows[1]:.3f} ms (CUDA events, {SPADE_REPEAT_STEPS} steps "
+              f"each) = {rate:.2f} imgs/s; conv/GEMM bound "
+              f"{bound_ms:.3f} ms ({step_flops / 1e12:.3f} TFLOP at the "
+              f"fp32 peak: G forward {g_fwd / 1e9 / B:.1f} GFLOP and D "
+              f"forward {d_fwd / 1e9 / B:.3f} GFLOP per image); peak device "
+              f"memory {peak_gb:.2f} GiB; on {smi}", flush=True)
+        res.update(step_ms=windows, train_imgs_per_sec=rate,
+                   step_bound_ms=bound_ms, step_tflop=step_flops / 1e12,
+                   peak_memory_gib=peak_gb, profile=prof)
+        del st, step
+
+        # the MMD mode, twice: finite losses, the same bits
+        mmd = []
+        for i in range(2):
+            tr = train_spade.main(
+                [*SPADE_RECIPE, "--mmd", "--nef", "16", "--steps",
+                 str(SPADE_MMD_STEPS), "--eval_every", "0", "--print_every",
+                 str(SPADE_MMD_STEPS), "--output_dir",
+                 os.path.join(root, f"mmd{i}"), "--device", device.type])
+            mmd.append((tr.loss_history(), tr.state.state_tensors()))
+            del tr
+        _check_finite("--mmd", mmd[0][0])
+        same = (all(np.array_equal(mmd[0][0][k], mmd[1][0][k])
+                    for k in mmd[0][0])
+                and all(torch.equal(a, b) for a, b in zip(mmd[0][1],
+                                                          mmd[1][1])))
+        print(f"  --mmd --nef 16, {SPADE_MMD_STEPS} steps twice: "
+              + ", ".join(f"{k} {v[0]:.4f} -> {v[-1]:.4f}"
+                          for k, v in mmd[0][0].items())
+              + f"; losses and state {'equal' if same else 'DIFFER'}",
+              flush=True)
+        if not same:
+            raise AssertionError("two --mmd runs differ")
+        res["mmd_last_losses"] = {k: float(v[-1]) for k, v in
+                                  mmd[0][0].items()}
+        del mmd, trainer, G
+        predicted_min = (SPADE_RECIPE_RUNS * SPADE_RECIPE_STEPS
+                         * min(windows) / 1e3 / 60)
+        print(f"  the recipe's {SPADE_RECIPE_RUNS * SPADE_RECIPE_STEPS} "
+              f"steps at this step time: {predicted_min:.1f} minutes of "
+              "training (renders, evals and saves besides)", flush=True)
+        res["recipe_predicted_min"] = predicted_min
+
+    if recipe:
+        with phase("spade recipe"):
+            evals, prev, t0 = [], "", time.perf_counter()
+            for r in range(SPADE_RECIPE_RUNS):
+                out = os.path.join(root, f"recipe{r}")
+                tr = train_spade.main(
+                    [*SPADE_RECIPE, "--steps", str(SPADE_RECIPE_STEPS),
+                     "--eval_every", "250", "--save_every", "250",
+                     "--print_every", "50", "--output_dir", out, "--device",
+                     device.type] + (["--resume", prev] if prev else []))
+                evals += [(tr.start_step + t, l1, psnr)
+                          for t, l1, psnr in tr.evals]
+                _check_finite(f"recipe run {r}", tr.loss_history())
+                prev = os.path.join(out, "spade_gan.ckpt")
+                del tr
+            seconds = time.perf_counter() - t0
+            for t, l1, psnr in evals:
+                print(f"  recipe step {t}: val PSNR {psnr:.4f} dB, val L1 "
+                      f"{l1:.5f}")
+            print(f"  recipe: {SPADE_RECIPE_RUNS} x {SPADE_RECIPE_STEPS} "
+                  f"steps in {seconds:.1f} s; final val PSNR "
+                  f"{evals[-1][2]:.4f} dB, L1 {evals[-1][1]:.5f} (the "
+                  f"committed checkpoint: {SPADE_RECORDED['val_psnr']:.2f} "
+                  f"dB, {SPADE_RECORDED['val_l1']:.4f}); on {smi}",
+                  flush=True)
+            model = gan_shade.make_spade_model(cfg, prev, device)
+            segs = gan_shade.render_spade_inputs(8, cfg, model.crop_size,
+                                                 synthetic_seed=19,
+                                                 key_offset=100,
+                                                 device=device)
+            metrics = gan_shade.make_shading_metrics(model)
+            target = gan_shade.shading_target(segs)
+            quality = {}
+            for seed in SPADE_Z_SEEDS:
+                z = torch.randn(len(segs), model.nz, device=device,
+                                generator=torch.Generator(
+                                    device).manual_seed(seed))
+                l1, psnr, _ = metrics(segs, target, z)
+                quality[seed] = {"psnr": psnr, "l1": l1}
+            print("  port-trained generator on the quality cell (8 rooms, "
+                  "seed 19): " + "; ".join(
+                      f"z seed {k}: PSNR {v['psnr']:.4f} dB, L1 "
+                      f"{v['l1']:.5f}" for k, v in quality.items()),
+                  flush=True)
+            res["recipe"] = {"seconds": seconds, "evals": evals,
+                             "quality": quality}
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1060,15 +1488,19 @@ def main() -> None:
     ap.add_argument("--train-recipe", action="store_true",
                     help="also train the committed model's whole recipe "
                          "and score it")
+    ap.add_argument("--spade-recipe", action="store_true",
+                    help="also train the committed shading generator's "
+                         "whole recipe (4 chained runs of 750 steps)")
     args = ap.parse_args()
     tmp = tempfile.mkdtemp(prefix="sln_chip_smoke_")
     try:
-        run(tmp, args.kernels_only, args.train_recipe)
+        run(tmp, args.kernels_only, args.train_recipe, args.spade_recipe)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run(tmp: str, kernels_only: bool = False, recipe: bool = False) -> None:
+def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
+        spade_recipe: bool = False) -> None:
     with phase("device"):
         if not torch.cuda.is_available():
             raise RuntimeError("torch.cuda.is_available() is False: "
@@ -1130,6 +1562,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False) -> None:
                                     gen))
         err_fwd = max(e[0] for e in errs)
         err_bwd = max(e[1] for e in errs)
+        culling = culled_against_dense(cfg, device)
 
     if kernels_only:
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
@@ -1258,6 +1691,8 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False) -> None:
     training = train_phase(tmp, device, smi, recipe)
     shading = spade_phase(cfg, tmp, device, smi)
     launches["fwd"] += shading["fwd_launches"]
+    spade_training = spade_train_phase(cfg, tmp, device, smi, spade_recipe)
+    launches["fwd"] += spade_training["fwd_launches"]
 
     fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
@@ -1282,6 +1717,8 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False) -> None:
     print(json.dumps({"sampling": quality}))
     print(json.dumps({"train": training}))
     print(json.dumps({"spade": shading}))
+    print(json.dumps({"spade_train": spade_training}))
+    print(json.dumps({"culling": culling}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

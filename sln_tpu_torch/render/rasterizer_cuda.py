@@ -9,10 +9,14 @@ Same function as render/rasterizer.py:soft_rasterize:
   constant matrix `fdata` (edge-function coefficients, inverse edge
   lengths with the winding sign folded in, inverse vertex depths); an
   invalid or padded face sits "infinitely outside" (edge offset FAR_C);
-* pixels are cut into tiles of PT pixels and faces into chunks of FC; a
-  (tile, chunk) pair whose rows lie more than CULL_HALO_PX apart
-  contributes exact fp32 zeros, so each tile loops over its ACTIVE chunk
-  list only (`counts`, `clist`);
+* pixels are cut into tiles of PT pixels and faces into chunks of FC; each
+  tile loops over its ACTIVE chunk list only (`counts`, `clist`): the
+  chunks holding a face that can change an output on the tile's rows. The
+  coverage falls with the distance to each edge's *line*, so a face
+  reaches the face dilated in line distance by its reach (`CULL_LOGIT`,
+  which grows with how much nearer than the scene's far side the face
+  is), and a chunk is culled only when no such dilated face meets the
+  tile's rows (`chunk_tile_mask`);
 * the forward keeps per-pixel online-softmax statistics (m, s, sum w*z,
   sum log(1 - cov)) as residuals, and the backward replays the geometry
   chunk by chunk and sums closed-form cotangents into a (B, 16, Fp)
@@ -28,6 +32,7 @@ fall back when they cannot run.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -48,11 +53,23 @@ PT = 128     # pixels per tile: one CUDA block, one thread per pixel
 FC = 128     # faces per chunk
 MAX_CLASSES = 32   # the kernels' per-pixel class accumulator width
 
-# dilation (pixels) beyond a face's row span inside which its coverage can
-# still be nonzero in fp32: at d px outside, dd = -d(1+d)/sigma; for d = 8,
-# sigma = 0.5 that is -144, and exp(-144) = 0 even as an fp32 subnormal,
-# so both the visibility weight and the transmittance term vanish exactly
-CULL_HALO_PX = 8.0
+# A culled face must leave every output of the dense formula unchanged in
+# fp32. At d px outside a face's edge lines its coverage logit is dd =
+# -d(1 + d)/sigma. Its coverage and transmittance terms vanish once dd <
+# -104 (exp underflows), and its visibility weight exp(logit - m) vanishes
+# once its logit lies 104 below that of a face that covers the pixel (only
+# there is the opacity nonzero, and such a face has log sigmoid(dd) > -17).
+# The visibility logit also carries -zbuf/gamma: a face nearer than the
+# covering one by dz gains dz/gamma, so one 8 px off an edge can still take
+# the whole softmax of an edge pixel behind it. So face u reaches out to
+# dd = CULL_LOGIT + (zmax - zmin_u)/gamma, zmax the farthest vertex depth
+# of its scene and zmin_u its own nearest (a face's zbuf lies between its
+# vertex depths). CULL_LOGIT = 8 x 9 / 0.5: at least the 8 px of the JAX
+# package's halo at sigma 0.5.
+CULL_LOGIT = 144.0
+# faces whose inradius (px) is below this are not dilated: they are taken
+# to reach every row, since 1 + halo / inradius would overflow
+MIN_INRADIUS_PX = 1e-4
 
 # kernel launches, counted where each wrapper launches its kernels: two per
 # forward call (item, merge), three per backward call (item, reduce,
@@ -93,26 +110,68 @@ def pack_faces(geom: FaceGeometry, num_classes: int
     return fdata.contiguous(), onehot.contiguous()
 
 
-def chunk_tile_mask(geom: FaceGeometry, image_size: int, tile: int = PT
-                    ) -> torch.Tensor:
-    """(B, T, K) bool: does any face of y-sorted chunk k come within
-    CULL_HALO_PX rows of pixel tile t (tiles of `tile` pixels)?"""
+def cull_halo_px(geom: FaceGeometry, sigma: float, gamma: float
+                 ) -> torch.Tensor:
+    """(B, F) float64: each face's reach in px beyond its edge lines, the d
+    with d(1 + d)/sigma = CULL_LOGIT + (zmax - zmin_u)/gamma."""
+    inv_z = geom.inv_z.double()
+    z_far = torch.where(geom.valid, 1.0 / inv_z.amin(-1), -math.inf)
+    z_gain = (z_far.amax(-1, keepdim=True) - 1.0 / inv_z.amax(-1)).clamp(
+        min=0.0)
+    dd = CULL_LOGIT + z_gain / gamma
+    return 0.5 * (torch.sqrt(1.0 + 4.0 * sigma * dd) - 1.0)
+
+
+def dilated_row_span(geom: FaceGeometry, image_size: int, sigma: float,
+                     gamma: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ymin, ymax), each (B, F): the rows of each face dilated by its
+    cull_halo_px in line distance; (inf, -inf) for an invalid face, whose
+    packed edge offset FAR_C gives exact zeros.
+
+    The three edge lines pushed out by h meet at the face scaled about its
+    incentre I by 1 + h / r (r the inradius), so the dilated face's
+    vertices are I + (1 + h / r)(v - I). A face with r below
+    MIN_INRADIUS_PX (valid, but nearly degenerate) spans every row."""
+    v = geom.v2d.double()                                   # (B, F, 3, 2)
+    edge = torch.roll(v, -1, dims=-2) - v                   # edge k: k -> k+1
+    length = torch.linalg.vector_norm(edge, dim=-1)         # (B, F, 3)
+    perim = length.sum(-1)
+    area2 = (edge[..., 0, 0] * edge[..., 2, 1]
+             - edge[..., 0, 1] * edge[..., 2, 0]).abs()
+    r = area2 / perim.clamp(min=1e-30)
+    # vertex k's weight is the length of the edge opposite it, k+1 -> k+2
+    w = torch.roll(length, -1, dims=-1)
+    y = v[..., 1]
+    inc_y = (w * y).sum(-1) / perim.clamp(min=1e-30)
+    thin = r < MIN_INRADIUS_PX
+    scale = 1.0 + cull_halo_px(geom, sigma, gamma) / torch.where(thin, 1.0,
+                                                                 r)
+    yd = inc_y[..., None] + scale[..., None] * (y - inc_y[..., None])
+    lo = torch.where(thin, 0.0, yd.amin(-1))
+    hi = torch.where(thin, float(image_size), yd.amax(-1))
+    return (torch.where(geom.valid, lo, math.inf).float(),
+            torch.where(geom.valid, hi, -math.inf).float())
+
+
+def chunk_tile_mask(geom: FaceGeometry, image_size: int, sigma: float = 0.5,
+                    gamma: float = 0.02, tile: int = PT) -> torch.Tensor:
+    """(B, T, K) bool: does any face of y-sorted chunk k, dilated by its
+    reach in line distance (dilated_row_span), meet the rows of pixel tile
+    t (tiles of `tile` pixels)? A (tile, chunk) pair the kernels skip
+    changes none of the tile's outputs. sigma and gamma are the render's."""
     B, Fn = geom.valid.shape
     pad = -Fn % FC
-    y = geom.v2d[..., 1]
-    inf = float("inf")
-    ymin = F.pad(torch.where(geom.valid, y.amin(-1), inf), (0, pad),
-                 value=inf)
-    ymax = F.pad(torch.where(geom.valid, y.amax(-1), -inf), (0, pad),
-                 value=-inf)
+    ymin, ymax = dilated_row_span(geom, image_size, sigma, gamma)
+    ymin = F.pad(ymin, (0, pad), value=math.inf)
+    ymax = F.pad(ymax, (0, pad), value=-math.inf)
     K = (Fn + pad) // FC
-    ch_min = ymin.reshape(B, K, FC).amin(-1) - CULL_HALO_PX     # (B, K)
-    ch_max = ymax.reshape(B, K, FC).amax(-1) + CULL_HALO_PX
+    ch_min = ymin.reshape(B, K, FC).amin(-1)                    # (B, K)
+    ch_max = ymax.reshape(B, K, FC).amax(-1)
     P = image_size * image_size
     if P % tile:
         raise ValueError(f"{image_size}^2 pixels do not split into tiles "
                          f"of {tile}")
-    t = torch.arange(P // tile, device=y.device)
+    t = torch.arange(P // tile, device=ymin.device)
     tile_rmin = ((t * tile) // image_size).float()
     tile_rmax = (((t + 1) * tile - 1) // image_size).float()
     return ((ch_min[:, None, :] <= tile_rmax[None, :, None])
@@ -460,15 +519,18 @@ def rasterize_core(fdata, onehot, counts, clist, image_size: int,
                                sigma, gamma, z_far)
 
 
-def prepare_faces(geom: FaceGeometry, num_classes: int, image_size: int):
+def prepare_faces(geom: FaceGeometry, num_classes: int, image_size: int,
+                  sigma: float = 0.5, gamma: float = 0.02):
     """y-centre sort, pack, cull: the kernels' inputs
-    (fdata, onehot, counts, clist) for a batch of scenes."""
+    (fdata, onehot, counts, clist) for a batch of scenes rendered with
+    sigma and gamma."""
     ycen = torch.where(geom.valid, geom.v2d[..., 1].mean(-1),
                        float("inf"))
     order = torch.argsort(ycen, dim=-1, stable=True)
     geom = geom.take(order)
     fdata, onehot = pack_faces(geom, num_classes)
-    counts, clist = chunk_lists(chunk_tile_mask(geom, image_size))
+    counts, clist = chunk_lists(chunk_tile_mask(geom, image_size, sigma,
+                                                gamma))
     return fdata, onehot, counts, clist
 
 
@@ -479,7 +541,7 @@ def soft_rasterize_cuda(geom: FaceGeometry, num_classes: int,
     """Same function as rasterizer.soft_rasterize, on culled face chunks.
     Returns (depth (B, S, S), classes (B, S, S, C))."""
     fdata, onehot, counts, clist = prepare_faces(geom, num_classes,
-                                                 image_size)
+                                                 image_size, sigma, gamma)
     depth, classes = rasterize_core(fdata, onehot, counts, clist,
                                     image_size, sigma, gamma, z_far)
     B, S = fdata.shape[0], image_size

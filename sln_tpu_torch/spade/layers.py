@@ -19,6 +19,7 @@ constant rescale of the kernel, so the convs here are plain.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -28,13 +29,61 @@ import torch.nn.functional as F
 Mods = Tuple[torch.Tensor, torch.Tensor]
 
 
+def _unreflect(g: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
+    """Adjoint of reflection padding by `pad` along `dim`: the padded
+    gradient's border folded back onto the rows it copied, by slices and
+    adds (no scatter). Output j < pad copied input pad - j, output
+    pad + n + k copied input n - 2 - k; a single row was copied to all."""
+    n = g.shape[dim] - 2 * pad
+    if n == 1:
+        return g.sum(dim, keepdim=True)
+    core = g.narrow(dim, pad, n).clone()
+    core.narrow(dim, 1, pad).add_(g.narrow(dim, 0, pad).flip(dim))
+    core.narrow(dim, n - 1 - pad, pad).add_(
+        g.narrow(dim, pad + n, pad).flip(dim))
+    return core
+
+
+class _ReflectPad2d(torch.autograd.Function):
+    """F.pad(mode="reflect") whose backward sums in a fixed order. PyTorch's
+    CUDA backward of reflection padding adds with atomics, so two runs
+    differ in the last bits; this one gives the same bits every time."""
+
+    @staticmethod
+    def forward(ctx, x, pad):
+        ctx.pad = pad
+        if x.shape[2] == 1 and x.shape[3] == 1:
+            # a 1 x 1 map (the generator's 8 x 8 head at 32 px) reflects to
+            # copies of itself, as numpy's and jax's reflect do; PyTorch's
+            # refuses padding wider than the input
+            return x.expand(-1, -1, 1 + 2 * pad, 1 + 2 * pad).contiguous()
+        return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _unreflect(_unreflect(g, ctx.pad, 3), ctx.pad, 2), None
+
+
+class ReflectionPad2d(nn.Module):
+    """nn.ReflectionPad2d with a fixed-order backward (_ReflectPad2d)."""
+
+    def __init__(self, pad: int):
+        super().__init__()
+        self.pad = pad
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad == 0:
+            return x
+        return _ReflectPad2d.apply(x, self.pad)
+
+
 class PadConv(nn.Sequential):
     """ReflectionPad2d(pad) + Conv2d(kernel, padding=0); the conv is
     submodule `1`, as in the reference's Sequentials."""
 
     def __init__(self, fin: int, fout: int, kernel: int, pad: int,
                  bias: bool = True):
-        super().__init__(nn.ReflectionPad2d(pad),
+        super().__init__(ReflectionPad2d(pad),
                          nn.Conv2d(fin, fout, kernel, bias=bias))
 
 
@@ -53,9 +102,50 @@ def layer_norm_2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
             / (std.reshape(shape) + eps)).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def bilinear_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_out, n_in) weights of a half-pixel bilinear resize along one axis,
+    as F.interpolate(align_corners=False) computes them: source
+    (dst + 0.5) * n_in / n_out - 0.5, clamped at 0, between floor(src)
+    and the next index (the last index at the edge). Cached per size and
+    device: built once, on the host."""
+    src = ((torch.arange(n_out, dtype=torch.float64) + 0.5)
+           * (n_in / n_out) - 0.5).clamp(min=0.0)
+    i0 = src.floor().long().clamp(max=n_in - 1)
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    l1 = src - i0
+    m = torch.zeros(n_out, n_in, dtype=torch.float64)
+    rows = torch.arange(n_out)
+    m.index_put_((rows, i0), 1.0 - l1, accumulate=True)
+    m.index_put_((rows, i1), l1, accumulate=True)
+    return m.float().to(device)
+
+
+class _ResizeBilinear(torch.autograd.Function):
+    """F.interpolate(bilinear) whose backward is two GEMMs with the
+    per-axis weight matrices, Ah^T g Aw: a fixed order. PyTorch's CUDA
+    backward of the bilinear resize adds with atomics."""
+
+    @staticmethod
+    def forward(ctx, x, h, w):
+        ctx.sizes = (x.shape[2], x.shape[3], h, w)
+        return F.interpolate(x, size=(h, w), mode="bilinear",
+                             align_corners=False, antialias=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        H, W, h, w = ctx.sizes
+        ah = bilinear_matrix(H, h, g.device).to(g.dtype)  # (h, H)
+        aw = bilinear_matrix(W, w, g.device).to(g.dtype)  # (w, W)
+        return torch.matmul(ah.t(), torch.matmul(g, aw)), None, None
+
+
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B, C, H, W) bilinear resize, half-pixel centres, no antialiasing
-    (the reference's F.interpolate default)."""
+    (the reference's F.interpolate default); its backward sums in a fixed
+    order (_ResizeBilinear)."""
+    if x.requires_grad:
+        return _ResizeBilinear.apply(x, h, w)
     return F.interpolate(x, size=(h, w), mode="bilinear",
                          align_corners=False, antialias=False)
 

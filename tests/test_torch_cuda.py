@@ -224,3 +224,92 @@ def test_spade_generator_on_the_card_matches_the_cpu(card):
         again = m.decode(m.seg_mods(seg.to(card)), z.to(card))
     assert torch.equal(got, again)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+
+
+def _gan_state(device, ngf=16, ndf=16, nz=32, crop=128):
+    """A GAN training state (seeded JAX-like init, built on the CPU, then
+    moved) and one batch of two, on `device`."""
+    from sln_tpu_torch.spade import port
+    from sln_tpu_torch.spade.discriminator import MultiscaleDiscriminator
+    from sln_tpu_torch.spade.generator import SPADEGenerator4
+    from sln_tpu_torch.spade.losses import GanState
+
+    G = port.init_like_jax(SPADEGenerator4(nz=nz, ngf=ngf, crop_size=crop),
+                           0)
+    D = port.init_like_jax(MultiscaleDiscriminator(44, ndf), 1)
+    rng = np.random.default_rng(0)
+    seg = np.zeros((2, 41, crop, crop), np.float32)
+    seg[:, 0] = rng.uniform(-1, 1, (2, crop, crop))
+    np.put_along_axis(seg[:, 1:], rng.integers(0, 40, (2, 1, crop, crop)),
+                      1.0, 1)
+    real = rng.uniform(-1, 1, (2, 3, crop, crop)).astype(np.float32)
+    z = rng.standard_normal((2, nz)).astype(np.float32)
+    batch = tuple(torch.from_numpy(x).to(device) for x in (seg, real, z))
+    return GanState(G.to(device), D.to(device), 1e-4, 4e-4), batch
+
+
+def test_spade_discriminator_on_the_card_matches_the_cpu(card):
+    """The multiscale discriminator (ndf 16, 128 px) in training mode on
+    the card and on the CPU from the same weights: every feature map and
+    logit within 1e-4 (abs, of values of order 1), and the spectral
+    vectors after the power-iteration step within 1e-5."""
+    outs, bufs = [], []
+    for dev in (card, torch.device("cpu")):
+        state, (seg, real, _) = _gan_state(dev)
+        D = state.discriminator
+        with torch.no_grad():
+            out = D(torch.cat([seg, real], 1), True)
+        outs.append([f.cpu() for feats in out for f in feats])
+        bufs.append([b.cpu() for b in D.buffers()])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    for a, b in zip(*bufs):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_gan_step_on_the_card_matches_the_cpu(card):
+    """One hinge + feature-matching + L1 step (ngf 16, ndf 16, 128 px,
+    batch 2) on the card and on the CPU from the same state and batch: the
+    losses within rtol 1e-4, and each network's gradients (left in .grad
+    by the step, before Adam) within 1e-3 of the CPU's relative to each
+    tensor's norm; not the discriminator's instance-normed conv biases,
+    whose gradient is rounding alone."""
+    from sln_tpu_torch.spade.discriminator import instance_normed_biases
+    from sln_tpu_torch.spade.losses import make_gan_train_step
+
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        state, batch = _gan_state(dev)
+        losses = make_gan_train_step(state, lambda_l1=50.0)(*batch)
+        skip = {f"d.{n}" for n in instance_normed_biases(
+            state.discriminator)}
+        grads = {f"{net}.{n}": p.grad.cpu()
+                 for net, m in (("d", state.discriminator),
+                                ("g", state.generator))
+                 for n, p in m.named_parameters() if f"{net}.{n}" not in skip}
+        runs.append(({k: float(v) for k, v in losses.items()}, grads))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    for k, want in l_cpu.items():
+        np.testing.assert_allclose(l_card[k], want, rtol=1e-4, err_msg=k)
+    for k, b in g_cpu.items():
+        rel = float((g_card[k] - b).norm() / b.norm().clamp(min=1e-12))
+        assert rel <= 1e-3, (k, rel)
+
+
+def test_gan_step_gives_the_same_bits_twice(card):
+    """The same step from the same state twice: every loss, parameter,
+    spectral vector and Adam moment the same bits (the reflection pads' and
+    the bilinear resize's backward sum in a fixed order)."""
+    from sln_tpu_torch.spade.losses import make_gan_train_step
+
+    results = []
+    for _ in range(2):
+        state, batch = _gan_state(card)
+        step = make_gan_train_step(state, lambda_l1=50.0)
+        losses = [step(*batch) for _ in range(2)]
+        results.append(([v for d in losses for v in d.values()],
+                        state.state_tensors()))
+    (l1, s1), (l2, s2) = results
+    assert all(torch.equal(a, b) for a, b in zip(l1, l2))
+    assert len(s1) == len(s2)
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))

@@ -254,9 +254,8 @@ def test_render_spade_inputs_matches_jax(monkeypatch):
     """The quality cell's rooms (synthetic seed 19, graph keys from 100)
     through mesh retrieval, the render and the SPADE input conversion.
     Both sides rasterize with the dense formula (the JAX package's CPU
-    path): the culled path that the card runs drops sliver faces' wide
-    line-distance coverage, an open fault of both packages' tiled
-    rasterizers (ROADMAP §3)."""
+    path), so this holds the render glue alone;
+    test_render_spade_inputs_culled_matches_jax holds the culled path."""
     monkeypatch.setattr(tscene, "soft_rasterize_cuda",
                         lambda g, C, S, **kw: trz.soft_rasterize(g, C, S,
                                                                  **kw))
@@ -268,6 +267,25 @@ def test_render_spade_inputs_matches_jax(monkeypatch):
     want = jg.render_spade_inputs(2, jc, 48, synthetic_seed=19,
                                   key_offset=100)
     got = hwc(tg.render_spade_inputs(2, tc, 48, synthetic_seed=19,
+                                     key_offset=100, device="cpu"))
+    np.testing.assert_allclose(got[..., 0], want[..., 0], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got[..., 1:], want[..., 1:])
+
+
+def test_render_spade_inputs_culled_matches_jax():
+    """The same render through the port's own culled path (sort, pack,
+    cull, the forward kernel's plain version), against the JAX package's
+    dense CPU render: one quality-cell room at 32 px with 8 object slots,
+    the smallest size at which culling on the row span alone (the rule
+    before the line-distance dilation) flipped 31 mask values."""
+    O = 8
+    jc = jcfg.default_config().replace(data=jcfg.DataConfig(
+        max_objects=O, max_triples=3 * O, max_on_rels=O))
+    tc = tcfg.default_config().replace(data=tcfg.DataConfig(
+        max_objects=O, max_triples=3 * O, max_on_rels=O))
+    want = jg.render_spade_inputs(1, jc, 32, synthetic_seed=19,
+                                  key_offset=100)
+    got = hwc(tg.render_spade_inputs(1, tc, 32, synthetic_seed=19,
                                      key_offset=100, device="cpu"))
     np.testing.assert_allclose(got[..., 0], want[..., 0], rtol=0, atol=1e-4)
     np.testing.assert_array_equal(got[..., 1:], want[..., 1:])

@@ -66,6 +66,12 @@ def to_t(*xs):
 
 @pytest.mark.parametrize("n,seed", [(23, 0), (200, 5)])
 def test_packing_and_culling_match_jax(n, seed):
+    """The packing equals the JAX kernel's. The culling keeps every (tile,
+    chunk) pair that the JAX kernel keeps, and more: the JAX package culls
+    on each face's row span widened by the halo, which misses a sliver
+    face's coverage along its edge lines; the port culls on the face
+    dilated in line distance (test_culled_render_matches_dense_on_slivers
+    holds the result)."""
     faces = random_faces(n, seed)
     _, fdata, onehot, mask, counts, clist = jax_packed(faces)
     g = torch_geom(faces)
@@ -78,10 +84,68 @@ def test_packing_and_culling_match_jax(n, seed):
     np.testing.assert_allclose(t_fdata[0].numpy(), np.asarray(fdata),
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(t_onehot[0].numpy(), np.asarray(onehot))
-    np.testing.assert_array_equal(t_mask[0].numpy(),
-                                  np.asarray(mask) > 0)
-    np.testing.assert_array_equal(t_counts[0].numpy(), np.asarray(counts))
-    np.testing.assert_array_equal(t_clist[0].numpy(), np.asarray(clist))
+    kept_by_jax = np.asarray(mask) > 0
+    assert t_mask[0].numpy()[kept_by_jax].all()
+    # clist lists each tile's active chunks first, in ascending order
+    m = t_mask[0].numpy()
+    for t in range(m.shape[0]):
+        n_act = int(t_counts[0, t, 0])
+        assert n_act == m[t].sum()
+        np.testing.assert_array_equal(t_clist[0, t, :n_act].numpy(),
+                                      np.flatnonzero(m[t]))
+
+
+S_SLIVER = 64     # two rows per 128-pixel tile: room for chunks to cull
+
+
+def sliver_faces(kind, n_bulk=500, seed=11):
+    """Small faces far behind, and near slivers in front of them, each
+    spanning a few rows only: "thin" (long and a fraction of a pixel
+    wide), "long" (a needle), "degenerate" (near-zero area, still valid,
+    beside a collinear one, which is invalid). The coverage of each reaches
+    along its edge lines far beyond its rows. Enough faces for several
+    chunks, so that tiles far from a chunk's rows are culled."""
+    rng = np.random.default_rng(seed)
+    tris, zs, cls = [], [], []
+    for _ in range(n_bulk):
+        a = rng.uniform(0, S_SLIVER, 2)
+        side = rng.uniform(2, 4)
+        tris.append([a, a + [side, 0], a + [side / 2, side * 0.87]])
+        zs.append(rng.uniform(8, 12, 3))
+        cls.append(rng.integers(0, C))
+    slivers = {
+        "thin": [[[20, 24], [32, 38], [26.4, 30.6]],
+                 [[44, 10], [36, 24], [40.2, 16.8]]],
+        "long": [[[32, 24], [33.2, 24], [32.6, 40]],
+                 [[12, 52], [13, 52], [16, 34]]],
+        "degenerate": [[[16, 24], [24, 36], [20, 30.001]],
+                       [[40, 40], [48, 48], [44, 44]]]}[kind]
+    for tri in slivers:
+        tris.append(tri)
+        zs.append([2.0, 2.5, 3.0])
+        cls.append(C - 1)
+    valid = np.ones(len(tris), bool)
+    return (np.array(tris, np.float32), np.array(zs, np.float32), valid,
+            np.array(cls, np.int32))
+
+
+@pytest.mark.parametrize("kind", ["thin", "long", "degenerate"])
+def test_culled_render_matches_dense_on_slivers(kind):
+    """The port's culled path (sort, pack, cull, the forward kernel's plain
+    version) against the dense soft_rasterize on sliver faces, whose
+    coverage reaches far beyond their row span: depth within 1e-4, no
+    class-mask value flipped at 0.5, and some tiles really culled."""
+    g = torch_geom(sliver_faces(kind))
+    d_t, c_t = tc.soft_rasterize_cuda(g, C, S_SLIVER, sigma=SIGMA,
+                                      gamma=GAMMA, z_far=ZFAR)
+    d_o, c_o = tr.soft_rasterize(g, C, S_SLIVER, sigma=SIGMA, gamma=GAMMA,
+                                 z_far=ZFAR)
+    np.testing.assert_allclose(d_t.numpy(), d_o.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(c_t.numpy(), c_o.numpy(), rtol=0, atol=1e-4)
+    assert ((c_t > 0.5) == (c_o > 0.5)).all()
+    counts = tc.prepare_faces(g, C, S_SLIVER, SIGMA, GAMMA)[2]
+    mask = tc.chunk_tile_mask(g, S_SLIVER, SIGMA, GAMMA)
+    assert int(counts.sum()) < mask.numel()
 
 
 def test_chunk_lists_prefix_matches_mask():
