@@ -93,17 +93,40 @@ Phases, each printing a line as it ends:
               steps twice. With --spade-recipe the whole recipe follows: 4
               chained runs of 750 steps, val PSNR / L1 every 250 beside the
               committed generator's, and the quality cell on the result
-  9. times    active chunks per tile and work items at 96 px / 8 rooms and
+  9. bf16     the bfloat16 compute modes: `python -m sln_tpu_torch.train
+              --compute_dtype bfloat16` through its main at the recipe's
+              width (200 iterations): finite losses falling, the trio
+              restored bit for bit, a bf16 model with float32 parameters;
+              card against CPU in bf16: one MLP + BatchNorm stack at the
+              recipe's width on the same inputs within half the card's
+              bf16-fp32 gap, and two train steps (from the committed and
+              from this run's state) nearer the CPU's bf16 than the card's
+              fp32 (relative Frobenius norms); one step twice op by op;
+              scenes/s beside fp32's. The quality cell
+              with a bf16 VAE inside the fp32 bands, and the sampler's
+              layouts/s in both dtypes. `--fine_tune --compute_dtype
+              bfloat16` (one room, 96 px, 60 iterations) and the 8-room
+              serving loop, each twice: both kernels launched, the same
+              loss histories, step ms beside fp32's. `--gan_shade
+              --spade_dtype bfloat16` through main (200 PNGs): bf16 weights
+              but SE's, the same bits as fp32 weights cast per call, the
+              quality cell at three z seeds inside the fp32 bands, the mean
+              image difference from fp32, imgs/s and a decode chunk's ms
+              beside fp32's and the bf16 conv-FLOP bound, and the decode on
+              cuDNN's and on im2col + cuBLAS's deterministic bf16 convs
+  10. times   active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
               8-room shapes and both kernels' at 256 px (CUDA events),
               beside each kernel's bound; each kernel's device time split
               between its launches (torch.profiler)
-  10. profile torch.profiler over three 8-room refine steps: device busy
+  11. profile torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
 Then one JSON line of kernel records, the refine, sampling, train, spade,
-spade_train and culling lines, the card's nvidia-smi line, and as the last
+spade_train and culling lines, one line per bf16 group (bf16_train,
+bf16_sampling, bf16_refine, bf16_shading), the card's nvidia-smi line, and
+as the last
 line {"ok": true, "device": {...}}. Any failed phase raises, so the script
 exits non-zero and prints no result. All outputs go to a temporary directory
 that is removed at the end.
@@ -330,12 +353,14 @@ def culled_against_dense(cfg, device) -> dict:
 
 
 def bits_checksum(t: torch.Tensor) -> torch.Tensor:
-    """An int64 sum of a tensor's 32-bit words (of its values, for types
-    narrower than 32 bits), on the device: changed bits change it unless
-    their changes cancel."""
+    """An int64 sum of a tensor's 32-bit words (16-bit words for 16-bit
+    types, values for narrower ones), on the device: changed bits change
+    it unless their changes cancel."""
     flat = t.detach().contiguous().reshape(-1)
     if flat.element_size() in (4, 8):
         return flat.view(torch.int32).sum(dtype=torch.int64)
+    if flat.element_size() == 2:
+        return flat.view(torch.int16).sum(dtype=torch.int64)
     return flat.to(torch.int64).sum()
 
 
@@ -1101,7 +1126,7 @@ def spade_phase(cfg, tmp: str, device, smi: str) -> dict:
             dec_flops = conv_flops(model, lambda: model.decode(mods, zs[0]))
             # the same decode with cuDNN's convolutions (fp32, deterministic
             # algorithms), which the generator does not use: see
-            # spade/generator.py fp32_math
+            # spade/generator.py conv_math
             with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                             deterministic=True,
                                             allow_tf32=False):
@@ -1481,6 +1506,347 @@ def spade_train_phase(cfg, tmp: str, device, smi: str,
     return res
 
 
+# the bf16 phase: the card's dense bf16 tensor-core peak (NVIDIA data
+# sheet, H100 SXM), and the JAX package's account of bf16 shading's mean
+# image error (sln_tpu/config.py:229-230), printed beside the port's
+PEAK_BF16_FLOPS = 989e12
+JAX_BF16_IMAGE_ERR = 1.5 / 255
+
+
+def rel(a, b) -> float:
+    """Relative Frobenius norm |a - b| / |b| of two equal-length lists."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def bf16_train(tmp: str, device, smi: str, fp32_rate: float) -> dict:
+    """`python -m sln_tpu_torch.train --compute_dtype bfloat16` at the
+    recipe's width; returns its numbers."""
+    out_dir = os.path.join(tmp, "train_bf16")
+    argv = [*RECIPE, "--compute_dtype", "bfloat16",
+            "--num_iterations", str(TRAIN_ITERS),
+            "--print_every", str(TRAIN_ITERS // 3),
+            "--checkpoint_every", str(TRAIN_ITERS),
+            "--snapshot_every", str(TRAIN_ITERS),
+            "--output_dir", out_dir, "--checkpoint_name", "smoke"]
+    state, ckpt, seconds = train_run(argv, device)
+    total = ckpt["losses"]["total_loss"]
+    if not total[-1] < total[0]:
+        raise AssertionError(f"bf16 total_loss did not fall: {total}")
+    cfg = train_cli.config_from_args(train_cli.parse_args(argv))
+    if state.model.dtype != torch.bfloat16 or any(
+            p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError("the bf16 trainer's model is not a bf16 model "
+                             "with float32 parameters")
+    restored = common.restore_model(cfg, device)
+    batch = batch_of_rooms(cfg, 8, 3, device)
+    z = torch.randn(batch.boxes.shape[:2] + (cfg.model.latent_dim,),
+                    generator=torch.Generator(device).manual_seed(4),
+                    device=device)
+    with torch.no_grad():
+        want = state.model.eval().decode(z, batch)
+        got = restored.decode(z, batch)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the restored bf16 checkpoint decodes "
+                             "differently from the trained model")
+    print(f"  bf16 total_loss at t = {ckpt['losses_ts']}: {total}; "
+          "restore_model decodes as the trained model, bit for bit",
+          flush=True)
+
+    # card bf16 against CPU bf16. bfloat16 turns the last-bit differences
+    # of the card's and the CPU's float32 sums (the BatchNorm statistics
+    # over 6,144 rows, a GEMM's accumulation order) into whole-ulp flips,
+    # and every layer after spreads them: measured op by op on one
+    # encoder pass, 4e-5 of the first GEMM's outputs flip, 7e-3 after the
+    # next BatchNorm, 1.5e-2 within the first graph conv. So the CPU tests'
+    # gate, half the card's bf16-fp32 gap, is held where the inputs are
+    # the same: one MLP + BatchNorm stack at the recipe's width (the first
+    # graph conv's net1, train mode). Two whole steps share the cast points
+    # but not the cascade: the card's bf16 must lie nearer the CPU's bf16
+    # than its own fp32 (independent roundings would lie sqrt(2) times
+    # further).
+    cpu = torch.device("cpu")
+    net = common.restore_model(cfg, cpu).gconv_net_ec.gconvs[0].net1
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(6144, net[0].in_features, generator=g)
+    valid = torch.rand(6144, generator=g) < 0.75
+    ys = {}
+    for name, dev, dt in (("card_bf16", device, torch.bfloat16),
+                          ("cpu_bf16", cpu, torch.bfloat16),
+                          ("card_fp32", device, torch.float32)):
+        m = copy.deepcopy(net).to(dev).train()
+        m.dtype = dt
+        with torch.no_grad():
+            ys[name] = m(x.to(dev), valid.to(dev)).float().cpu()[valid]
+    mlp = {"rel_card_cpu": rel(ys["card_bf16"], ys["cpu_bf16"]),
+           "rel_bf16_fp32": rel(ys["card_bf16"], ys["card_fp32"])}
+    print(f"  MLP + BatchNorm (384 -> 256 -> 640, 6144 rows, train mode), the "
+          f"same inputs: rel(card bf16, CPU bf16) {mlp['rel_card_cpu']:.3e}, "
+          f"rel(card bf16, card fp32) {mlp['rel_bf16_fp32']:.3e} (gate: the "
+          f"first at most half the second)", flush=True)
+    if not (0 < 2 * mlp["rel_card_cpu"] <= mlp["rel_bf16_fp32"]):
+        raise AssertionError(f"bf16 MLP card vs CPU: {mlp}")
+
+    # two steps with the same random numbers from two states: the committed
+    # checkpoint's (the end of its recipe, Adam state included) and this
+    # run's (200 steps in, near its early KL peak)
+    arrays, size_info = common.load_arrays(4096, cfg, device,
+                                           synthetic_seed=42)
+    rows = np.arange(cfg.train.batch_size)
+    raw_host = {k: v[rows] for k, v in arrays.items()}
+    gen = torch.Generator().manual_seed(0)
+    B, O = raw_host["objs"].shape
+    draws = [[(draw_graph_randomness(B, O, gen, "cpu"),
+               torch.randn(B, O, cfg.model.latent_dim, generator=gen))]
+             for _ in range(2)]
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  compute_dtype="float32"))
+    states = {"committed": train_ckpt.latest_path(
+                  CHECKPOINT.output_dir, CHECKPOINT.checkpoint_name),
+              "this run": train_ckpt.latest_path(out_dir, "smoke")}
+    card_vs_cpu = {"mlp": mlp}
+    for label, path in states.items():
+        trained = train_ckpt.load_checkpoint(path)
+        runs = {}
+        for name, dev, c in (("card_bf16", device, cfg),
+                             ("cpu_bf16", cpu, cfg),
+                             ("card_fp32", device, cfg32)):
+            si = type(size_info)(*(x.to(dev) for x in size_info))
+            st = train_loop.create_state(c, dev, trained)
+            step = train_loop.make_train_step(st, c, si)
+            raw = train_loop.stage_arrays(raw_host, dev)
+            runs[name] = [{k: float(v) for k, v in step(raw, d).items()}
+                          for d in draws]
+        keys = sorted(k for k in runs["card_bf16"][0] if k != "skipped_nan")
+
+        def vec(name):
+            return [r[k] for r in runs[name] for k in keys]
+        ours = rel(vec("card_bf16"), vec("cpu_bf16"))
+        gap = rel(vec("card_bf16"), vec("card_fp32"))
+        card_vs_cpu[label] = {**runs, "rel_card_cpu": ours,
+                              "rel_bf16_fp32": gap}
+        print(f"  2 steps at batch {B} from {label}'s state, losses {keys}: "
+              f"rel(card bf16, CPU bf16) {ours:.3e}, rel(card bf16, card "
+              f"fp32) {gap:.3e} (gate: the first below the second); "
+              f"total_loss card bf16 "
+              f"{[r['total_loss'] for r in runs['card_bf16']]}", flush=True)
+        if not (0 < ours < gap):
+            raise AssertionError(f"bf16 train steps card vs CPU from "
+                                 f"{label}'s state: {ours} not below the "
+                                 f"bf16 gap {gap}")
+
+    # one bf16 step twice, op by op: the same bits
+    staged = train_loop.stage_arrays(arrays, device)
+    raw = train_loop.gather_batch(staged, rows)
+    pair = []
+    for _ in range(2):
+        st = train_loop.create_state(cfg, device)
+        pair.append((st, train_loop.make_train_step(st, cfg, size_info)))
+    traces = []
+    for st, step in pair:
+        with op_trace_mode() as trace:
+            step(raw)
+        traces.append(trace)
+    t1, t2 = traces
+    if t1.names != t2.names:
+        raise AssertionError("two identical bf16 train steps ran different "
+                             "ops")
+    differ = (torch.stack(t1.sums) != torch.stack(t2.sums)).nonzero()
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        pair[0][0].state_tensors(), pair[1][0].state_tensors()))
+    print(f"  one bf16 train step twice: {len(t1.names)} op outputs "
+          f"compared, {len(differ)} differ; parameters, Adam and BatchNorm "
+          f"state {'equal' if same_state else 'DIFFER'}", flush=True)
+    if len(differ) or not same_state:
+        raise AssertionError("bf16 training is not bitwise reproducible")
+
+    # throughput, the train phase's windows
+    step = pair[0][1]
+    step(raw)
+    windows = [event_ms(lambda: step(raw), 60, 0) for _ in range(2)]
+    rate = B / (min(windows) / 1e3)
+    print(f"  bf16 train step at batch {B}: {windows[0]:.3f}, "
+          f"{windows[1]:.3f} ms (CUDA events, 60 steps each) = {rate:.0f} "
+          f"scenes/s; fp32 in this call {fp32_rate:.0f} scenes/s; on {smi}",
+          flush=True)
+    return {"train_run_s": seconds, "iterations": TRAIN_ITERS,
+            "total_loss": total, "card_vs_cpu": card_vs_cpu,
+            "step_ms": windows,
+            "train_scenes_per_sec": rate,
+            "fp32_train_scenes_per_sec": fp32_rate}
+
+
+def bf16_sampling(cfg, tmp: str, device, smi: str) -> dict:
+    """The committed checkpoint's quality cell with a bf16 VAE, and the
+    sampler's rate in both dtypes; returns the numbers."""
+    cfg_b = cfg.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16"))
+    model_b = common.restore_model(cfg_b, device)
+    q, mean, cov = quality_cell(model_b, cfg_b, tmp, device,
+                                against_jax=False)
+    for k, (lo, hi) in QUALITY_BANDS.items():
+        if not lo <= q[k] <= hi:
+            raise AssertionError(f"bf16 {k} {q[k]} outside the fp32 band "
+                                 f"[{lo}, {hi}]")
+    batch = heatmap.heatmap_scene_batch(4096, 8, 24, device=device)
+    rates = {}
+    for name, model in (("float32", common.restore_model(cfg, device)),
+                        ("bfloat16", model_b)):
+        sample = heatmap.make_sampler(model, batch, mean, cov)
+        gen = torch.Generator(device).manual_seed(0)
+        shape = (4096, 8, len(mean))
+        ms = event_ms(lambda: sample(torch.randn(shape, generator=gen,
+                                                 device=device)), 40, 5)
+        rates[name] = 4096 / (ms / 1e3)
+    print(f"  bf16 quality cell inside the fp32 bands; sampler layouts/s at "
+          f"batch 4096 (CUDA events, 40 calls): fp32 {rates['float32']:.0f}, "
+          f"bf16 {rates['bfloat16']:.0f}, on {smi}", flush=True)
+    return {**q, "sampler_layouts_per_s": rates}
+
+
+def bf16_shading(cfg, tmp: str, device, smi: str, fp32: dict) -> dict:
+    """--spade_dtype bfloat16 on the committed generator; returns its
+    numbers and the forward kernel's launches on the --gan_shade run."""
+    from sln_tpu_torch.spade import generator as spade_gen
+
+    cfg_b = cfg.replace(spade=dataclasses.replace(
+        cfg.spade, compute_dtype="bfloat16"))
+    model_b = gan_shade.make_spade_model(cfg_b, SPADE_CHECKPOINT, device)
+    model_f = gan_shade.make_spade_model(cfg, SPADE_CHECKPOINT, device)
+    stored = {n: p.dtype for n, p in model_b.named_parameters()}
+    se = {n for n in stored if ".se." in n}
+    if not se or any(stored[n] != torch.float32 for n in se) or any(
+            d != torch.bfloat16 for n, d in stored.items() if n not in se):
+        raise AssertionError("bf16 serving weights: SE layers must stay "
+                             "float32, every other weight bfloat16")
+    mb = sum(p.numel() * p.element_size() for p in model_b.parameters())
+    mf = sum(p.numel() * p.element_size() for p in model_f.parameters())
+    # the same model with float32 weights cast at each call
+    cast = spade_gen.SPADEGenerator4(
+        nz=model_f.nz, ngf=model_f.ngf, crop_size=model_f.crop_size,
+        dtype=torch.bfloat16)
+    cast.load_state_dict(model_f.state_dict())
+    cast = cast.to(device).eval()
+
+    segs = gan_shade.render_spade_inputs(8, cfg, model_b.crop_size,
+                                         synthetic_seed=19, key_offset=100,
+                                         device=device)
+    zq = {seed: torch.randn(len(segs), model_b.nz, device=device,
+                            generator=torch.Generator(device).manual_seed(
+                                seed)) for seed in SPADE_Z_SEEDS}
+    with torch.inference_mode():
+        img_b = model_b(segs, zq[SPADE_Z_SEEDS[0]])
+        same_bits = torch.equal(img_b, cast(segs, zq[SPADE_Z_SEEDS[0]]))
+        twice = torch.equal(img_b, model_b(segs, zq[SPADE_Z_SEEDS[0]]))
+        img_f = model_f(segs, zq[SPADE_Z_SEEDS[0]])
+    del cast
+    # mean |difference| on the [0, 255] scale of the PNGs
+    img_err = float((img_b - img_f).abs().mean()) * 127.5
+    print(f"  bf16 weights {mb / 2**20:.1f} MiB (fp32 {mf / 2**20:.1f}); "
+          f"bf16-stored against fp32 weights cast per call: "
+          f"{'the same bits' if same_bits else 'DIFFERENT BITS'}; two runs "
+          f"{'equal' if twice else 'DIFFER'}; mean |bf16 - fp32| image "
+          f"{img_err:.4f} / 255 (JAX package: about "
+          f"{JAX_BF16_IMAGE_ERR * 255:.1f} / 255)", flush=True)
+    if not same_bits or not twice:
+        raise AssertionError("bf16 shading is not bitwise reproducible, or "
+                             "its stored weights change the output")
+
+    out_root = os.path.join(tmp, "spade_bf16")
+    rc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = entry.main([
+        "--gan_shade", "--synthetic", "32", "--spade_dtype", "bfloat16",
+        "--output_dir", CHECKPOINT.output_dir,
+        "--checkpoint_name", CHECKPOINT.checkpoint_name,
+        "--test_dir", out_root, "--spade_checkpoint", SPADE_CHECKPOINT,
+        "--device", device.type])
+    torch.cuda.synchronize()
+    shade_s = time.perf_counter() - t0
+    launches = rc.FWD_LAUNCHES
+    shapes = {png_shape(p) for p in paths}
+    print(f"  --gan_shade --spade_dtype bfloat16: {len(paths)} PNGs in "
+          f"{shade_s:.1f} s; rasterizer launches fwd {launches}, bwd "
+          f"{rc.BWD_LAUNCHES}", flush=True)
+    if len(paths) != SPADE_ROOMS * 50 or shapes != {
+            (model_b.crop_size, model_b.crop_size, 3)}:
+        raise AssertionError(f"bf16 --gan_shade wrote {len(paths)} PNGs of "
+                             f"{shapes}")
+    if launches != 2 * SPADE_ROOMS or rc.BWD_LAUNCHES:
+        raise AssertionError(f"bf16 --gan_shade: fwd {launches} / bwd "
+                             f"{rc.BWD_LAUNCHES} launches")
+
+    metrics = gan_shade.make_shading_metrics(model_b)
+    target = gan_shade.shading_target(segs)
+    quality = {}
+    for seed, z in zq.items():
+        l1, psnr, _ = metrics(segs, target, z)
+        quality[seed] = {"psnr": psnr, "l1": l1}
+    print("  bf16 quality (8 held-out rooms, one z each): " + "; ".join(
+        f"z seed {k}: PSNR {v['psnr']:.4f} dB, L1 {v['l1']:.5f}"
+        for k, v in quality.items()), flush=True)
+    for seed, q in quality.items():
+        for k, (lo, hi) in SPADE_BANDS.items():
+            if not lo <= q[k] <= hi:
+                raise AssertionError(f"bf16 z seed {seed}: {k} {q[k]} "
+                                     f"outside [{lo}, {hi}]")
+
+    # the serving rate, as the spade phase measures it
+    seg1 = segs[:1]
+    zs = gan_shade.draw_zs(50, model_b.nz, device=device)
+    with torch.inference_mode():
+        def room(seg):
+            mods = model_b.seg_mods(seg)
+            for z in zs:
+                model_b.decode(mods, z)
+        room(seg1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(len(segs)):
+            room(segs[i:i + 1])
+        end.record()
+        torch.cuda.synchronize()
+        room_ms = start.elapsed_time(end) / len(segs)
+        mods = model_b.seg_mods(seg1)
+        seg_ms = event_ms(lambda: model_b.seg_mods(seg1), 10, 2)
+        dec_flops = conv_flops(model_b, lambda: model_b.decode(mods, zs[0]))
+        # the decode on each deterministic conv route
+        route_ms = {}
+        chosen = spade_gen.CUDNN_CONVS[torch.bfloat16]
+        try:
+            for use_cudnn in (True, False):
+                spade_gen.CUDNN_CONVS[torch.bfloat16] = use_cudnn
+                route_ms["cudnn" if use_cudnn else "im2col"] = event_ms(
+                    lambda: model_b.decode(mods, zs[0]), 10, 2)
+        finally:
+            spade_gen.CUDNN_CONVS[torch.bfloat16] = chosen
+        dec_ms = event_ms(lambda: model_b.decode(mods, zs[0]), 10, 2)
+    rate = 50 / (room_ms / 1e3)
+    dec_bound = dec_flops / PEAK_BF16_FLOPS * 1e3
+    route = "cudnn" if chosen else "im2col"
+    print(f"  bf16 serving: {room_ms:.3f} ms per room of 50 z = {rate:.1f} "
+          f"imgs/s (fp32 in this call {fp32['imgs_per_sec_device']:.1f}); "
+          f"seg_mods {seg_ms:.3f} ms (fp32 {fp32['seg_mods_ms']:.3f}); "
+          f"decode of 10 z {dec_ms:.3f} ms on {route} (fp32 "
+          f"{fp32['decode10_ms']:.3f}; bf16 bound {dec_bound:.3f}: "
+          f"{dec_flops / 1e9:.1f} GFLOP at the dense bf16 peak); decode "
+          f"by route: cuDNN {route_ms['cudnn']:.3f} ms, im2col + cuBLAS "
+          f"{route_ms['im2col']:.3f} ms; on {smi}", flush=True)
+    return {"weights_mib": mb / 2**20, "fp32_weights_mib": mf / 2**20,
+            "stored_vs_cast_same_bits": same_bits,
+            "image_mean_abs_err_255": img_err, "gan_shade_s": shade_s,
+            "gan_shade_pngs": len(paths), "fwd_launches": launches,
+            "quality": quality, "room_ms": room_ms,
+            "imgs_per_sec_device": rate,
+            "fp32_imgs_per_sec_device": fp32["imgs_per_sec_device"],
+            "seg_mods_ms": seg_ms, "decode10_ms": dec_ms,
+            "fp32_decode10_ms": fp32["decode10_ms"],
+            "decode10_bound_ms": dec_bound, "decode10_route": route,
+            "decode10_route_ms": route_ms}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1694,6 +2060,51 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     spade_training = spade_train_phase(cfg, tmp, device, smi, spade_recipe)
     launches["fwd"] += spade_training["fwd_launches"]
 
+    with phase("bf16"):
+        bf16 = {"train": bf16_train(tmp, device, smi,
+                                    training["train_scenes_per_sec"]),
+                "sampling": bf16_sampling(cfg, tmp, device, smi)}
+        cfg_b = cfg.replace(model=dataclasses.replace(
+            cfg.model, compute_dtype="bfloat16"))
+
+        def fine_tune_bf16():
+            return entry.main([
+                "--fine_tune", "--synthetic", "32", "--compute_dtype",
+                "bfloat16", "--output_dir", CHECKPOINT.output_dir,
+                "--checkpoint_name", CHECKPOINT.checkpoint_name,
+                "--test_dir", tmp])
+
+        hist_b = counted("bf16 fine_tune 1 room 96px", fine_tune_bf16, ITERS)
+        again_b = counted("bf16 fine_tune, again", fine_tune_bf16, ITERS)
+        for room, losses in hist_b.items():
+            check_losses(f"bf16 fine_tune room {room}",
+                         [h["total"] for h in losses])
+        if again_b != hist_b:
+            raise AssertionError("two bf16 fine_tune runs gave different "
+                                 "loss histories")
+        model_b = common.restore_model(cfg_b, device)
+        ms_b = [counted(name, lambda name=name: timed_refine(
+            name, model_b, batch8, inputs96, cfg_b, ITERS), ITERS)
+            for name in ("bf16 serving 8 rooms 96px",
+                         "bf16 serving 8 rooms 96px, again")]
+        if not torch.equal(histories["bf16 serving 8 rooms 96px"],
+                           histories["bf16 serving 8 rooms 96px, again"]):
+            raise AssertionError("two bf16 serving runs gave different loss "
+                                 "histories")
+        bf16["refine"] = {
+            "fine_tune_total": {r: [h["total"] for h in v]
+                                for r, v in hist_b.items()},
+            "serving_total": histories["bf16 serving 8 rooms 96px"]
+            [[0, -1]].tolist(),
+            "serving_ms_per_step": ms_b,
+            "fp32_serving_ms_per_step": step_ms["96px_8rooms"]}
+        print(f"  bf16 refine: two fine_tunes and two serving runs repeat "
+              f"their loss histories bit for bit; serving {ms_b[0]:.3f}, "
+              f"{ms_b[1]:.3f} ms/step (fp32 in this call "
+              f"{step_ms['96px_8rooms']:.3f}), on {smi}", flush=True)
+        bf16["shading"] = bf16_shading(cfg, tmp, device, smi, shading)
+        launches["fwd"] += bf16["shading"]["fwd_launches"]
+
     fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
 
@@ -1713,12 +2124,16 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
                launches["fwd"], err_fwd, fwd_ms, fwd_plain, fwd_bound),
         record("soft_raster_bwd", "sln_tpu/render/rasterizer_pallas.py:194",
                launches["bwd"], err_bwd, bwd_ms, bwd_plain, bwd_bound)]}))
-    print(json.dumps({"refine_ms_per_step": step_ms}))
+    print(json.dumps({"refine_ms_per_step": step_ms, "total_first_last": {
+        "fine_tune": [[h[0]["total"], h[-1]["total"]] for h in hist.values()],
+        "serving": histories["serving 8 rooms 96px"][[0, -1]].tolist()}}))
     print(json.dumps({"sampling": quality}))
     print(json.dumps({"train": training}))
     print(json.dumps({"spade": shading}))
     print(json.dumps({"spade_train": spade_training}))
     print(json.dumps({"culling": culling}))
+    for group, numbers in bf16.items():
+        print(json.dumps({f"bf16_{group}": numbers}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

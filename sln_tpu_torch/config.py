@@ -13,6 +13,15 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
+import torch
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def check_dtype(name: str, value: str) -> None:
+    if value not in COMPUTE_DTYPES:
+        raise ValueError(f"{name} {value!r} is not one of {COMPUTE_DTYPES}")
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -27,9 +36,20 @@ class ModelConfig:
     use_ae: bool = False                      # z = mu, no KL (--use_AE)
     train_3d: bool = True
     num_angles: int = 24
+    # compute dtype of the MLPs and graph convs ("float32" | "bfloat16");
+    # parameters, BatchNorm statistics and every model output stay float32
+    # (--compute_dtype)
+    compute_dtype: str = "float32"
     num_objs: int = 32
     num_preds: int = 16
     num_attrs: int = 5
+
+    def __post_init__(self):
+        check_dtype("compute_dtype", self.compute_dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
 
     @property
     def gconv_hidden_dim(self) -> int:
@@ -149,8 +169,17 @@ class SpadeConfig:
     crop_size: int = 256
     n_up: str = "normal"              # 'normal' | 'more' | 'most'
     num_z: int = 50                   # reference test.py:94
-    # only "float32" is ported; bfloat16 convs are ROADMAP item 10
+    # conv compute dtype of the shading generator ("float32" |
+    # "bfloat16"); with bfloat16, make_spade_model also stores the serving
+    # weights in bfloat16 (--spade_dtype)
     compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        check_dtype("compute_dtype", self.compute_dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
 
 
 @dataclass(frozen=True)

@@ -25,18 +25,25 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 class GraphTripleConv(nn.Module):
     """One round of (subject, predicate, object) message passing:
     concat (s, p, o) -> net1 -> (new_s, new_p, new_o); avg-pool new_s /
-    new_o into nodes (counts clamped to >= 1); node MLP net2."""
+    new_o into nodes (counts clamped to >= 1); node MLP net2.
+
+    The MLPs compute in `dtype`; the edge one-hots take the activations'
+    dtype, so under bfloat16 the gather and pool products, the counts and
+    the division run in bfloat16, as in the JAX module (the one-hots and
+    the small counts are exact there)."""
 
     def __init__(self, input_dim: int, hidden_dim: int,
                  output_dim: Optional[int] = None,
-                 mlp_normalization: str = "none"):
+                 mlp_normalization: str = "none",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.output_dim = output_dim or input_dim
         H, Dout = hidden_dim, self.output_dim
         self.net1 = MLP((3 * input_dim, H, 2 * H + Dout),
-                        batch_norm=mlp_normalization)
-        self.net2 = MLP((H, H, Dout), batch_norm=mlp_normalization)
+                        batch_norm=mlp_normalization, dtype=dtype)
+        self.net2 = MLP((H, H, Dout), batch_norm=mlp_normalization,
+                        dtype=dtype)
 
     def forward(self, obj_vecs, pred_vecs, edges, obj_mask, triple_mask):
         B, O, _ = obj_vecs.shape
@@ -63,7 +70,8 @@ class GraphTripleConvNet(nn.Module):
     'recurrent' mode applies one shared layer num_layers times."""
 
     def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 5,
-                 mode: str = "feedforward", mlp_normalization: str = "none"):
+                 mode: str = "feedforward", mlp_normalization: str = "none",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if mode not in ("feedforward", "recurrent"):
             raise ValueError(f"Invalid mode {mode!r}")
@@ -71,7 +79,7 @@ class GraphTripleConvNet(nn.Module):
         n_modules = num_layers if mode == "feedforward" else 1
         self.gconvs = nn.ModuleList(
             GraphTripleConv(input_dim, hidden_dim,
-                            mlp_normalization=mlp_normalization)
+                            mlp_normalization=mlp_normalization, dtype=dtype)
             for _ in range(n_modules))
 
     def forward(self, obj_vecs, pred_vecs, edges, obj_mask, triple_mask):

@@ -11,10 +11,40 @@ sln_tpu/utils/torch_port.py:109 reads.
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+@contextlib.contextmanager
+def fp32_accumulation():
+    """cuBLAS sums bfloat16 products in float32 throughout, as XLA does:
+    PyTorch lets it keep split-K partial sums in bfloat16 unless
+    allow_bf16_reduced_precision_reduction is off. Set around the forward
+    and backward passes of a bfloat16 model (float32 products ignore it);
+    the flag is put back after."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """F.linear computed in `dtype`, as flax's Dense(dtype=...): x, the
+    weight and the bias cast to it; below float32 the bias is added after
+    the product is rounded, as flax adds it. In float32 this is
+    F.linear."""
+    if dtype == torch.float32:
+        return F.linear(x.to(dtype), weight.to(dtype), bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -22,7 +52,9 @@ class MaskedBatchNorm(nn.Module):
 
     torch.nn.BatchNorm1d semantics: eps 1e-5, momentum 0.1, biased
     variance to normalize, unbiased variance for the running update.
-    Eval mode normalizes with the running statistics."""
+    Eval mode normalizes with the running statistics. Statistics, running
+    buffers and the normalisation are float32 whatever x's dtype; the
+    output takes x's dtype (the JAX module's layers.py:70)."""
 
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -38,11 +70,13 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            m = mask.to(x.dtype)[:, None]
+            # float32 statistics whatever x's dtype, as the JAX module
+            m = mask.to(torch.float32)[:, None]
             n = m.sum().clamp(min=1.0)
+            xf = x.float()
             # one pass sum / sum of squares, as the JAX module
-            mean = (x * m).sum(0) / n
-            var = ((x * x * m).sum(0) / n - mean * mean).clamp(min=0.0)
+            mean = (xf * m).sum(0) / n
+            var = ((xf * xf * m).sum(0) / n - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 unbiased = var * n / (n - 1.0).clamp(min=1.0)
                 self.running_mean.lerp_(mean, self.momentum)
@@ -50,8 +84,10 @@ class MaskedBatchNorm(nn.Module):
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
+        # normalised in float32 from the float32 statistics, returned in
+        # x's dtype
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        return (y * self.weight + self.bias).to(x.dtype)
 
 
 class OneHotEmbedding(nn.Embedding):
@@ -74,10 +110,16 @@ class MLP(nn.Sequential):
     Linear -> (BatchNorm) -> ReLU; `final_plain` (reference `norelu`)
     leaves the last stage a bare Linear. Sequential indices follow the
     reference: Linear@3i, BN@3i+1, ReLU@3i+2 with batch norm, else
-    Linear@2i, ReLU@2i+1."""
+    Linear@2i, ReLU@2i+1.
+
+    `dtype` is the compute dtype, as flax's Dense(dtype=...): each Linear
+    casts its input and its float32 weight and bias to it (`linear`), so
+    the activations come out in `dtype` while the parameters stay
+    float32."""
 
     def __init__(self, dims: Sequence[int], batch_norm: str = "none",
-                 final_plain: bool = False):
+                 final_plain: bool = False,
+                 dtype: torch.dtype = torch.float32):
         layers = []
         stages = len(dims) - 1
         for i in range(stages):
@@ -88,13 +130,19 @@ class MLP(nn.Sequential):
                 layers.append(MaskedBatchNorm(dims[i + 1]))
             layers.append(nn.ReLU())
         super().__init__(*layers)
+        self.dtype = dtype
         for layer in self:
             if isinstance(layer, nn.Linear):
                 nn.init.kaiming_normal_(layer.weight)
                 nn.init.zeros_(layer.bias)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
         for layer in self:
-            x = layer(x, mask) if isinstance(layer, MaskedBatchNorm) \
-                else layer(x)
+            if isinstance(layer, nn.Linear):
+                x = linear(x, layer.weight, layer.bias, dt)
+            elif isinstance(layer, MaskedBatchNorm):
+                x = layer(x, mask)
+            else:
+                x = layer(x)
         return x

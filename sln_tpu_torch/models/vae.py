@@ -21,7 +21,8 @@ from torch import nn
 from sln_tpu_torch.config import ModelConfig
 from sln_tpu_torch.data.batch import SceneBatch
 from sln_tpu_torch.models.graph import GraphTripleConvNet
-from sln_tpu_torch.models.layers import MLP, MaskedBatchNorm, OneHotEmbedding
+from sln_tpu_torch.models.layers import (MLP, MaskedBatchNorm,
+                                         OneHotEmbedding, fp32_accumulation)
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -29,6 +30,15 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 
 
 class Sg2ScVAE(nn.Module):
+    """cfg.compute_dtype is the compute dtype of the MLPs and graph convs,
+    cast where the JAX module casts (sln_tpu/models/vae.py): the embedding
+    lookups and box_embeddings stay float32, their concatenations and z
+    are cast before the graph convs, and mu, logvar, boxes_pred and the
+    angle log-probabilities (log_softmax on float32 logits) come out
+    float32. Parameters are float32 in either dtype. encode and decode
+    run under fp32_accumulation; the training and refine steps hold it
+    through their backward passes too."""
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = c = cfg
@@ -53,23 +63,25 @@ class Sg2ScVAE(nn.Module):
 
         bn = c.mlp_normalization
         hid = c.gconv_hidden_dim
-        self.box_mean_var = MLP((2 * e, hid, 2 * e), bn)
-        self.box_mean = MLP((2 * e, c.box_embedding_dim), bn, True)
-        self.box_var = MLP((2 * e, c.box_embedding_dim), bn, True)
-        self.angle_mean_var = MLP((2 * e, hid, 2 * e), bn)
-        self.angle_mean = MLP((2 * e, c.angle_embedding_dim), bn, True)
-        self.angle_var = MLP((2 * e, c.angle_embedding_dim), bn, True)
+        self.dtype = dt = c.dtype
+        self.box_mean_var = MLP((2 * e, hid, 2 * e), bn, dtype=dt)
+        self.box_mean = MLP((2 * e, c.box_embedding_dim), bn, True, dt)
+        self.box_var = MLP((2 * e, c.box_embedding_dim), bn, True, dt)
+        self.angle_mean_var = MLP((2 * e, hid, 2 * e), bn, dtype=dt)
+        self.angle_mean = MLP((2 * e, c.angle_embedding_dim), bn, True, dt)
+        self.angle_var = MLP((2 * e, c.angle_embedding_dim), bn, True, dt)
 
         self.gconv_net_ec = GraphTripleConvNet(
-            2 * e, hid, c.gconv_num_layers, c.gconv_mode, bn)
+            2 * e, hid, c.gconv_num_layers, c.gconv_mode, bn, dt)
         self.gconv_net_dc = GraphTripleConvNet(
             2 * e if c.decoder_cat else e, hid, c.gconv_num_layers,
-            c.gconv_mode, bn)
+            c.gconv_mode, bn, dt)
 
         box_in = 2 * e + (c.attr_embedding_dim if c.use_attr else 0)
-        self.box_net = MLP((box_in, hid, c.box_dim), bn, True)
-        self.angle_net = MLP((2 * e, hid, c.num_angles), bn, True)
+        self.box_net = MLP((box_in, hid, c.box_dim), bn, True, dt)
+        self.angle_net = MLP((2 * e, hid, c.num_angles), bn, True, dt)
 
+    @fp32_accumulation()
     def encode(self, batch: SceneBatch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Posterior q(z | graph, boxes, angles): (mu, logvar), each
         (B, O, latent_dim) with latent = [box | angle]."""
@@ -82,8 +94,11 @@ class Sg2ScVAE(nn.Module):
         pred_vecs = self.pred_embeddings_ec(batch.preds)
         box_vecs = self.box_embeddings(batch.boxes)
         obj_vecs = torch.cat([obj_vecs, box_vecs, angle_vecs], -1)
-        obj_vecs, _ = self.gconv_net_ec(obj_vecs, pred_vecs, batch.edges,
-                                        batch.obj_mask, batch.triple_mask)
+        # the embeddings are float32; the graph convs run in the compute
+        # dtype
+        obj_vecs, _ = self.gconv_net_ec(
+            obj_vecs.to(self.dtype), pred_vecs.to(self.dtype), batch.edges,
+            batch.obj_mask, batch.triple_mask)
 
         B, O = batch.objs.shape
         mask = _flat(batch.obj_mask)
@@ -94,8 +109,10 @@ class Sg2ScVAE(nn.Module):
                         self.angle_mean(vec_angle, mask)], -1)
         logvar = torch.cat([self.box_var(vec_box, mask),
                             self.angle_var(vec_angle, mask)], -1)
-        return mu.reshape(B, O, -1), logvar.reshape(B, O, -1)
+        return (mu.reshape(B, O, -1).float(),
+                logvar.reshape(B, O, -1).float())
 
+    @fp32_accumulation()
     def decode(self, z: torch.Tensor, batch: SceneBatch
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """p(box, angle | z, graph): (boxes_pred (B, O, 6),
@@ -106,21 +123,23 @@ class Sg2ScVAE(nn.Module):
         if c.use_attr:
             attr_vecs = self.attr_embedding_dc(batch.attrs)
             obj_vecs = torch.cat([obj_vecs, attr_vecs], -1)
-        pred_vecs = self.pred_embeddings_dc(batch.preds)
+        pred_vecs = self.pred_embeddings_dc(batch.preds).to(self.dtype)
         if c.decoder_cat:
             obj_vecs = torch.cat([obj_vecs, z], -1)
-        obj_vecs, _ = self.gconv_net_dc(obj_vecs, pred_vecs, batch.edges,
-                                        batch.obj_mask, batch.triple_mask)
+        obj_vecs, _ = self.gconv_net_dc(obj_vecs.to(self.dtype), pred_vecs,
+                                        batch.edges, batch.obj_mask,
+                                        batch.triple_mask)
         if not c.decoder_cat:
-            obj_vecs = torch.cat([obj_vecs, z], -1)
+            obj_vecs = torch.cat([obj_vecs, z.to(self.dtype)], -1)
 
         B, O = batch.objs.shape
         mask = _flat(batch.obj_mask)
         flat = _flat(obj_vecs)
         box_in = torch.cat([flat, _flat(attr_vecs)], -1) if c.use_attr \
             else flat
-        boxes_pred = self.box_net(box_in, mask).reshape(B, O, -1)
-        angle_logprobs = F.log_softmax(self.angle_net(flat, mask), -1)
+        boxes_pred = self.box_net(box_in, mask).reshape(B, O, -1).float()
+        angle_logprobs = F.log_softmax(self.angle_net(flat, mask).float(),
+                                       -1)
         return boxes_pred, angle_logprobs.reshape(B, O, -1)
 
     def forward(self, batch: SceneBatch,

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sln_tpu_torch.spade.generator import fp32_math
+from sln_tpu_torch.spade.generator import conv_math
 from sln_tpu_torch.spade.spectral import SpectralConv
 
 
@@ -104,7 +104,7 @@ class MultiscaleDiscriminator(nn.Module):
             self.add_module(f"discriminator_{i}", NLayerDiscriminator(
                 input_nc, ndf, max(n_layers - i, 1), mmd_nz))
 
-    @fp32_math()
+    @conv_math()
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> List[list]:
         outs = []

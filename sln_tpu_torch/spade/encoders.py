@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sln_tpu_torch.spade.generator import fp32_math
+from sln_tpu_torch.spade.generator import conv_math
 from sln_tpu_torch.spade.layers import SEBlock2, resize_bilinear
 from sln_tpu_torch.spade.spectral import SpectralConv
 
@@ -90,7 +90,7 @@ class ConvEncoderPSPSEMMD(nn.Module):
         self.fc_z_pre = nn.Linear(nef * 16, 512)
         self.fc_z = nn.Linear(512, output_nc)
 
-    @fp32_math()
+    @conv_math()
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if x.shape[2] != 256 or x.shape[3] != 256:
             x = resize_bilinear(x, 256, 256)

@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sln_tpu_torch.models.layers import linear
+
 Mods = Tuple[torch.Tensor, torch.Tensor]
 
 
@@ -77,14 +79,49 @@ class ReflectionPad2d(nn.Module):
         return _ReflectPad2d.apply(x, self.pad)
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `compute_dtype`, as flax's Conv(dtype=...):
+    the input, the weight and the bias are cast to it at each call, so the
+    output comes out in it while the parameters keep the dtype they are
+    stored in. Below float32 the bias is added after the convolution's
+    output is rounded, as flax adds it; in float32 this is nn.Conv2d."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32 or self.bias is None:
+            return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                      self.bias)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `compute_dtype` (layers.linear)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias, self.compute_dtype)
+
+
 class PadConv(nn.Sequential):
-    """ReflectionPad2d(pad) + Conv2d(kernel, padding=0); the conv is
-    submodule `1`, as in the reference's Sequentials."""
+    """ReflectionPad2d(pad) + Conv2d(kernel, padding=0) computing in
+    `dtype`; the conv is submodule `1`, as in the reference's
+    Sequentials."""
 
     def __init__(self, fin: int, fout: int, kernel: int, pad: int,
-                 bias: bool = True):
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__(ReflectionPad2d(pad),
-                         nn.Conv2d(fin, fout, kernel, bias=bias))
+                         Conv2d(fin, fout, kernel, bias=bias,
+                                compute_dtype=dtype))
 
 
 def layer_norm_2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -143,11 +180,25 @@ class _ResizeBilinear(torch.autograd.Function):
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B, C, H, W) bilinear resize, half-pixel centres, no antialiasing
     (the reference's F.interpolate default); its backward sums in a fixed
-    order (_ResizeBilinear)."""
+    order (_ResizeBilinear).
+
+    Below float32, rows are resized first and rounded to x's dtype, then
+    columns, as jax.image.resize contracts one axis at a time in x's
+    dtype; float32 resizes in one pass."""
     if x.requires_grad:
         return _ResizeBilinear.apply(x, h, w)
+    if x.dtype != torch.float32 and (h, w) != tuple(x.shape[2:]):
+        x = F.interpolate(x, size=(h, x.shape[3]), mode="bilinear",
+                          align_corners=False, antialias=False)
     return F.interpolate(x, size=(h, w), mode="bilinear",
                          align_corners=False, antialias=False)
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """F.leaky_relu with the slope rounded to x's dtype first, as jax.nn's
+    weakly typed slope is (0.2 is 0.2001953125 in bfloat16); in float32
+    this is F.leaky_relu."""
+    return F.leaky_relu(x, float(torch.tensor(slope, dtype=x.dtype)))
 
 
 def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -162,24 +213,28 @@ class SPADE4(nn.Module):
     Factored into `mods` (everything computed from the segmentation map
     alone: resize, depth branch, shared conv, gamma and beta convs) and
     `apply_mods` (the z stream's side). When one room is shaded with many
-    z, `mods` runs once per room; `forward` composes the two."""
+    z, `mods` runs once per room; `forward` composes the two. Its convs
+    compute in `dtype`; the resized segmentation stays float32 until a
+    conv casts it."""
 
     def __init__(self, norm_nc: int, label_nc: int = 41, ks: int = 3,
-                 nhidden: int = 128):
+                 nhidden: int = 128, dtype: torch.dtype = torch.float32):
         super().__init__()
         pw = ks // 2
-        self.mlp_preshared_depth = PadConv(1, nhidden // 8, ks, pw)
+        self.mlp_preshared_depth = PadConv(1, nhidden // 8, ks, pw,
+                                           dtype=dtype)
         self.mlp_shared = PadConv(nhidden // 8 + label_nc - 1, nhidden, 3,
-                                  pw)
-        self.mlp_gamma = PadConv(nhidden, norm_nc, ks, pw)
-        self.mlp_beta = PadConv(nhidden, norm_nc, ks, pw)
+                                  pw, dtype=dtype)
+        self.mlp_gamma = PadConv(nhidden, norm_nc, ks, pw, dtype=dtype)
+        self.mlp_beta = PadConv(nhidden, norm_nc, ks, pw, dtype=dtype)
 
     def mods(self, segmap: torch.Tensor, h: int, w: int) -> Mods:
         """segmap (B, label_nc, Hs, Ws), depth in channel 0 -> (gamma,
         beta), each (B, norm_nc, h, w)."""
         seg = resize_bilinear(segmap, h, w)
-        depth = F.leaky_relu(self.mlp_preshared_depth(seg[:, 0:1]), 0.01)
-        actv = F.relu(self.mlp_shared(torch.cat([depth, seg[:, 1:]], 1)))
+        depth = leaky_relu(self.mlp_preshared_depth(seg[:, 0:1]), 0.01)
+        actv = F.relu(self.mlp_shared(
+            torch.cat([depth, seg[:, 1:].to(depth.dtype)], 1)))
         return self.mlp_gamma(actv), self.mlp_beta(actv)
 
     @staticmethod
@@ -195,7 +250,10 @@ class SPADE4(nn.Module):
 
 
 class SEBlock2(nn.Module):
-    """Squeeze-excitation (reference :70-85)."""
+    """Squeeze-excitation (reference :70-85). Its two fc layers have no
+    compute dtype, as in the JAX module, where they promote to float32:
+    the mean is taken in the stream's dtype, the gate computed in float32
+    and cast to the stream's dtype before the multiply."""
 
     def __init__(self, channels: int, reduction: int = 8):
         super().__init__()
@@ -206,7 +264,12 @@ class SEBlock2(nn.Module):
                                 nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.fc(x.mean((2, 3)))[:, :, None, None]
+        # the mean accumulated in float32 and rounded once to x's dtype,
+        # as jnp.mean does (PyTorch's CPU mean of bfloat16 rounds the sum
+        # before it divides)
+        mean = x.mean((2, 3), dtype=torch.float32).to(x.dtype)
+        gate = self.fc(mean.float())
+        return x * gate.to(x.dtype)[:, :, None, None]
 
 
 class SPADEResnetBlock4(nn.Module):
@@ -214,19 +277,22 @@ class SPADEResnetBlock4(nn.Module):
 
     `mods` / `from_mods` split the block into its segmentation-only part
     (the (gamma, beta) of each of its SPADE norms) and the z stream's
-    pass; `forward` composes them."""
+    pass; `forward` composes them. Its convs compute in `dtype` (SEBlock2
+    in float32); the residual comes out in the input's dtype."""
 
-    def __init__(self, fin: int, fout: int, label_nc: int = 41):
+    def __init__(self, fin: int, fout: int, label_nc: int = 41,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         fmiddle = min(fin, fout)
         self.learned_shortcut = fin != fout
         if self.learned_shortcut:
-            self.norm_s = SPADE4(fin, label_nc)
-            self.conv_s = nn.Conv2d(fin, fout, 1, bias=False)
-        self.norm_0 = SPADE4(fin, label_nc)
-        self.conv_0 = PadConv(fin, fmiddle, 3, 1)
-        self.norm_1 = SPADE4(fmiddle, label_nc)
-        self.conv_1 = PadConv(fmiddle, fout, 3, 1)
+            self.norm_s = SPADE4(fin, label_nc, dtype=dtype)
+            self.conv_s = Conv2d(fin, fout, 1, bias=False,
+                                 compute_dtype=dtype)
+        self.norm_0 = SPADE4(fin, label_nc, dtype=dtype)
+        self.conv_0 = PadConv(fin, fmiddle, 3, 1, dtype=dtype)
+        self.norm_1 = SPADE4(fmiddle, label_nc, dtype=dtype)
+        self.conv_1 = PadConv(fmiddle, fout, 3, 1, dtype=dtype)
         self.se = SEBlock2(fout)
 
     def mods(self, seg: torch.Tensor, h: int, w: int) -> Dict[str, Mods]:
@@ -245,10 +311,10 @@ class SPADEResnetBlock4(nn.Module):
         else:
             x_s = x
         dx = SPADE4.apply_mods(x, *mods["norm_0"])
-        dx = self.conv_0(F.leaky_relu(dx, 0.2))
+        dx = self.conv_0(leaky_relu(dx, 0.2))
         dx = SPADE4.apply_mods(dx, *mods["norm_1"])
-        dx = self.conv_1(F.leaky_relu(dx, 0.2))
-        return x_s + self.se(dx)
+        dx = self.conv_1(leaky_relu(dx, 0.2))
+        return (x_s + self.se(dx)).to(x.dtype)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         return self.from_mods(x, self.mods(seg, x.shape[2], x.shape[3]))

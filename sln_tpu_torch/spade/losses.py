@@ -5,9 +5,9 @@ sln_tpu/spade/losses.py; reference GANLoss_2, models/SPADE_related.py
 A step alternates a discriminator update and a generator update in the JAX
 package's order, and the MMD mode adds an encoder update. Adam is
 optax.adam(lr, b1=0.0, b2=0.9): torch.optim.Adam with betas (0.0, 0.9),
-eps 1e-8. Each step runs with fp32_math in force through its backward
-passes too, and leaves each network's gradients of this step in `.grad`
-after its optimizer has stepped.
+eps 1e-8. Each step runs with conv_math (float32) in force through its
+backward passes too, and leaves each network's gradients of this step in
+`.grad` after its optimizer has stepped.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sln_tpu_torch.spade.generator import fp32_math
+from sln_tpu_torch.spade.generator import conv_math
 
 
 def gan_loss(logits: List[list], target_is_real: bool,
@@ -149,7 +149,7 @@ def make_gan_train_step(state: GanState, gan_mode: str = "hinge",
     G, D = state.generator, state.discriminator
 
     def step(seg, real, z):
-        with fp32_math():
+        with conv_math():
             with torch.no_grad():
                 fake = G(seg, z)
             fake_out = _d_forward(D, fake, seg, True)
@@ -201,7 +201,7 @@ def make_mmd_gan_train_step(state: GanState, gan_mode: str = "hinge",
         return total / max(len(zs), 1)
 
     def step(seg, real, z):
-        with fp32_math():
+        with conv_math():
             with torch.no_grad():
                 fake = G(seg, z)
             fake_out = _d_forward(D, fake, seg, True)

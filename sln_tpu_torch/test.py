@@ -34,12 +34,41 @@ def bool_flag(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"invalid bool flag {s!r}")
 
 
+def add_reference_compat_flags(p: argparse.ArgumentParser) -> None:
+    """The reference flags that its own code never reads, or that are CUDA
+    or DataLoader specifics (the JAX package's utils/cli.py:40-62), so
+    every reference invocation parses: accepted, and without effect here
+    apart from --suncg_data_dir, which is exported as SUNCG_DIR as the
+    reference does (apply_reference_compat_flags)."""
+    g = p.add_argument_group("reference compatibility (accepted; no-ops)")
+    g.add_argument("--suncg_data_dir", default=os.environ.get("SUNCG_DIR",
+                                                              ""))
+    g.add_argument("--loader_num_workers", default=8, type=int)
+    g.add_argument("--gconv_dim", default=128, type=int)
+    g.add_argument("--gconv_hidden_dim", default=512, type=int)
+    g.add_argument("--vec_noise_dim", default=0, type=int)
+    g.add_argument("--layout_noise_dim", default=32, type=int)
+    g.add_argument("--timing", default=False, type=bool_flag)
+    g.add_argument("--multigpu", default=False, type=bool_flag)
+    g.add_argument("--checkpoint_start_from", default=None)
+    g.add_argument("--gpu_id", default=0, type=int)
+
+
+def apply_reference_compat_flags(args: argparse.Namespace) -> None:
+    if args.suncg_data_dir:
+        os.environ["SUNCG_DIR"] = args.suncg_data_dir
+
+
 def parse_args(argv=None):
+    """Every flag and mode the root test.py accepts; the unported ones
+    parse and raise when used (check_ported)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batch_gen", action="store_true")
     p.add_argument("--measure_acc_l1_std", action="store_true")
     p.add_argument("--heat_map", action="store_true")
     p.add_argument("--draw_2d", action="store_true")
+    p.add_argument("--draw_3d", action="store_true",
+                   help="not ported (ROADMAP item 8a)")
     p.add_argument("--fine_tune", action="store_true")
     p.add_argument("--gan_shade", action="store_true")
     p.add_argument("--suncg_train_dir", default="metadata/data_rot_train.json")
@@ -47,6 +76,8 @@ def parse_args(argv=None):
     p.add_argument("--output_dir", default="./checkpoints")
     p.add_argument("--checkpoint_name", default="latest_checkpoint")
     p.add_argument("--test_dir", default="./layouts_out")
+    p.add_argument("--manual_seed", default=42, type=int,
+                   help="accepted as the root test.py accepts it; no effect")
     p.add_argument("--batch_size", default=256, type=int)
     p.add_argument("--synthetic", default=0, type=int,
                    help="use N synthetic rooms instead of SUNCG json")
@@ -64,6 +95,9 @@ def parse_args(argv=None):
                    help="override RefineConfig.num_iters (default 60)")
     p.add_argument("--room_ids", default="", type=str,
                    help="comma-separated room ids for --fine_tune")
+    p.add_argument("--save_semantic_gifs", action="store_true",
+                   help="per-class mask GIFs during --fine_tune; not "
+                        "ported (ROADMAP item 8a)")
     p.add_argument("--num_z", default=50, type=int,
                    help="z samples per room for --gan_shade (reference "
                         "test.py:94)")
@@ -81,20 +115,31 @@ def parse_args(argv=None):
                    help="SPADE width (reference: 64)")
     p.add_argument("--spade_dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="SPADE compute dtype; only float32 is ported")
+                   help="SPADE shading compute dtype; bfloat16 also stores "
+                        "the serving weights in bfloat16 (the same output "
+                        "bits as float32 weights cast at each call)")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="VAE MLP / graph-conv compute dtype (parameters, "
+                        "BatchNorm statistics and outputs stay float32)")
     p.add_argument("--semantic_source", default="rasterizer",
                    choices=["rasterizer", "blender", "files"],
                    help="--gan_shade mask/depth source: the rasterizer "
                         "(default) or existing files in "
                         "<test_dir>/data/semantic_masks; blender is not "
-                        "ported")
+                        "ported (ROADMAP item 8b)")
+    p.add_argument("--renderer", default="auto",
+                   choices=["auto", "blender", "preview"],
+                   help="--draw_3d backend; not ported (preview: ROADMAP "
+                        "item 8a, blender: item 8b)")
     # accepted as the root test.py accepts them; the Blender bridge is
-    # not ported (ROADMAP item 8)
+    # not ported (ROADMAP item 8b)
     p.add_argument("--blender_path", default="", type=str)
     p.add_argument("--blender_script", default="", type=str)
     # the model and data flags of the reference's global Options
     # (options/options.py:18-61); a restored checkpoint's weights must
     # match them, as in the reference
+    p.add_argument("--dataset", default="suncg", choices=["suncg"])
     p.add_argument("--embedding_dim", default=64, type=int)
     p.add_argument("--gconv_mode", default="feedforward")
     p.add_argument("--gconv_num_layers", default=5, type=int)
@@ -103,8 +148,45 @@ def parse_args(argv=None):
     p.add_argument("--decoder_cat", default=True, type=bool_flag)
     p.add_argument("--train_3d", default=True, type=bool_flag)
     p.add_argument("--use_attr_30", default=True, type=bool_flag)
+    # train-only flags, accepted so any reference invocation parses (the
+    # root test.py:109-120); no effect here
+    p.add_argument("--KL_loss_weight", default=0.1, type=float)
+    p.add_argument("--KL_linear_decay", default=False, type=bool_flag)
+    p.add_argument("--learning_rate", default=1e-4, type=float)
+    p.add_argument("--num_iterations", default=600000, type=int)
+    p.add_argument("--eval_mode_after", default=-1, type=int)
+    p.add_argument("--print_every", default=100, type=int)
+    p.add_argument("--checkpoint_every", default=1000, type=int)
+    p.add_argument("--snapshot_every", default=10000, type=int)
+    p.add_argument("--restore_from_checkpoint", default=False,
+                   type=bool_flag)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    return p.parse_args(argv)
+    add_reference_compat_flags(p)
+    args = p.parse_args(argv)
+    apply_reference_compat_flags(args)
+    return args
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for a flag that
+    parses but whose path the port does not have; a flag left at its
+    default never raises."""
+    if args.renderer == "blender":
+        raise NotImplementedError(
+            "--renderer blender (the Blender bridge) is not ported "
+            "(ROADMAP item 8b)")
+    if args.draw_3d or args.renderer == "preview":
+        raise NotImplementedError(
+            "--draw_3d and --renderer preview (the rasterizer-shaded "
+            "preview) are not ported (ROADMAP item 8a)")
+    if args.save_semantic_gifs:
+        raise NotImplementedError(
+            "--save_semantic_gifs (the refine loop's GIF dumps) is not "
+            "ported (ROADMAP item 8a)")
+    if args.gan_shade and args.semantic_source == "blender":
+        raise NotImplementedError(
+            "--semantic_source blender (the Blender mask/depth render) is "
+            "not ported (ROADMAP item 8b); use rasterizer or files")
 
 
 def build_cfg(args):
@@ -128,7 +210,8 @@ def build_cfg(args):
                           gconv_mode=args.gconv_mode,
                           mlp_normalization=args.mlp_normalization,
                           decoder_cat=args.decoder_cat,
-                          use_ae=args.use_AE, train_3d=args.train_3d),
+                          use_ae=args.use_AE, train_3d=args.train_3d,
+                          compute_dtype=args.compute_dtype),
         data=DataConfig(max_objects=args.max_objects,
                         max_triples=args.max_objects * 3,
                         max_on_rels=args.max_objects,
@@ -181,6 +264,7 @@ def main(argv=None):
     (--heat_map, --gan_shade) or the per-room loss history
     (--fine_tune)."""
     args = parse_args(argv)
+    check_ported(args)
     cfg = build_cfg(args)
     device = resolve_device(args.device)
     os.makedirs(args.test_dir, exist_ok=True)
@@ -249,10 +333,6 @@ def main(argv=None):
 
     if args.gan_shade:
         from sln_tpu_torch.workloads import gan_shade
-        if args.semantic_source == "blender":
-            raise NotImplementedError(
-                "--semantic_source blender (the Blender mask/depth render) "
-                "is not ported (ROADMAP item 8); use rasterizer or files")
         _, _, val, size_info = setup(args, cfg, device, train=False)
         out_dir = os.path.join(args.test_dir, "data", "SPADE_out")
         semantic_dir = None

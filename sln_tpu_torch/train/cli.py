@@ -22,31 +22,12 @@ from sln_tpu_torch import resolve_device
 from sln_tpu_torch.config import (Config, DataConfig, ModelConfig,
                                   TrainConfig, default_config)
 from sln_tpu_torch.data.vocab import VOCAB
-from sln_tpu_torch.test import bool_flag
+from sln_tpu_torch.test import (add_reference_compat_flags,
+                                apply_reference_compat_flags, bool_flag)
 from sln_tpu_torch.train import checkpoint as ckpt_lib
 from sln_tpu_torch.train import loop
 from sln_tpu_torch.train.metrics import MetricsLogger
 from sln_tpu_torch.workloads import common
-
-
-def add_reference_compat_flags(p: argparse.ArgumentParser) -> None:
-    """The reference flags that its own code never reads, or that are CUDA
-    or DataLoader specifics (the JAX package's utils/cli.py:40-62), so
-    every reference invocation parses: accepted, and without effect here
-    apart from --suncg_data_dir, which is exported as SUNCG_DIR as the
-    reference does."""
-    g = p.add_argument_group("reference compatibility (accepted; no-ops)")
-    g.add_argument("--suncg_data_dir", default=os.environ.get("SUNCG_DIR",
-                                                              ""))
-    g.add_argument("--loader_num_workers", default=8, type=int)
-    g.add_argument("--gconv_dim", default=128, type=int)
-    g.add_argument("--gconv_hidden_dim", default=512, type=int)
-    g.add_argument("--vec_noise_dim", default=0, type=int)
-    g.add_argument("--layout_noise_dim", default=32, type=int)
-    g.add_argument("--timing", default=False, type=bool_flag)
-    g.add_argument("--multigpu", default=False, type=bool_flag)
-    g.add_argument("--checkpoint_start_from", default=None)
-    g.add_argument("--gpu_id", default=0, type=int)
 
 
 def parse_args(argv=None):
@@ -87,7 +68,9 @@ def parse_args(argv=None):
     p.add_argument("--max_objects", default=32, type=int)
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="only float32 is ported (ROADMAP item 10)")
+                   help="VAE MLP / graph-conv compute dtype (parameters, "
+                        "BatchNorm statistics, Adam and the losses stay "
+                        "float32)")
     p.add_argument("--num_data_shards", default=None, type=int,
                    help="only 1 is ported (ROADMAP item 9)")
     p.add_argument("--microbatch", default=0, type=int,
@@ -99,16 +82,11 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     add_reference_compat_flags(p)
     args = p.parse_args(argv)
-    if args.suncg_data_dir:
-        os.environ["SUNCG_DIR"] = args.suncg_data_dir
+    apply_reference_compat_flags(args)
     return args
 
 
 def config_from_args(args) -> Config:
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            "--compute_dtype bfloat16 is not ported: the port computes in "
-            "float32 (ROADMAP item 10)")
     if args.num_data_shards not in (None, 1):
         raise NotImplementedError(
             "--num_data_shards > 1 is not ported: training runs on one "
@@ -120,7 +98,7 @@ def config_from_args(args) -> Config:
             gconv_mode=args.gconv_mode,
             mlp_normalization=args.mlp_normalization,
             decoder_cat=args.decoder_cat, use_ae=args.use_AE,
-            train_3d=args.train_3d),
+            train_3d=args.train_3d, compute_dtype=args.compute_dtype),
         data=DataConfig(max_objects=args.max_objects,
                         max_triples=args.max_objects * 3,
                         max_on_rels=args.max_objects,

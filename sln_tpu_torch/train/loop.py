@@ -25,6 +25,7 @@ import torch
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import (GraphDraws, SizeInfo, build_graphs,
                                         draw_graph_randomness)
+from sln_tpu_torch.models.layers import fp32_accumulation
 from sln_tpu_torch.models.vae import Sg2ScVAE, params_from_jax
 from sln_tpu_torch.train import checkpoint as ckpt_lib
 from sln_tpu_torch.train.losses import vae_losses
@@ -172,12 +173,15 @@ def make_train_step(state: TrainState, cfg: Config, size_info: SizeInfo,
             noise = noise.to(chunk.boxes.device)
         batch = build_graphs(*chunk, size_info, max_on_rels=dc.max_on_rels,
                              use_attr_30=dc.use_attr_30, draws=graph_draws)
-        mu, logvar, boxes_pred, angle_lp = model(
-            batch, generator=gen if noise is None else None, noise=noise)
-        total, losses = vae_losses(batch, mu, logvar, boxes_pred, angle_lp,
-                                   kl_w, cfg.model.use_ae, tc.kl_free_bits)
-        grads = torch.autograd.grad(total, params, allow_unused=True,
-                                    materialize_grads=True)
+        with fp32_accumulation():
+            mu, logvar, boxes_pred, angle_lp = model(
+                batch, generator=gen if noise is None else None,
+                noise=noise)
+            total, losses = vae_losses(batch, mu, logvar, boxes_pred,
+                                       angle_lp, kl_w, cfg.model.use_ae,
+                                       tc.kl_free_bits)
+            grads = torch.autograd.grad(total, params, allow_unused=True,
+                                        materialize_grads=True)
         n_valid = batch.obj_mask.to(torch.float32).sum().clamp(min=1.0)
         return list(grads), total, losses, n_valid
 

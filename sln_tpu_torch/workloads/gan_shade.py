@@ -225,21 +225,28 @@ def make_spade_model(cfg: Config, checkpoint_path: Optional[str] = None,
     writing noise images; a user-dropped latest_net_G_AB.pth under the
     output dir (test_SPADE_shade.py:9-14); the committed
     artifacts/spade_gan.ckpt; then seeded random init. The sentinel
-    "random" forces random init at cfg's dims."""
+    "random" forces random init at cfg's dims.
+
+    The generator computes in cfg.spade.compute_dtype. In bfloat16 the
+    serving weights are stored in bfloat16 too, apart from the SE layers'
+    (they compute in float32): the convs cast their weights to bfloat16
+    at each call anyway, so the output has the same bits, and the weights
+    take half the memory (the JAX package's gan_shade.py:253-270)."""
     sp = cfg.spade
-    if sp.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"SPADE compute_dtype {sp.compute_dtype!r} (--spade_dtype) is "
-            "not ported: the port shades in float32 (ROADMAP item 10)")
 
     def build(ngf, nz, crop):
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             return SPADEGenerator4(sp.semantic_nc, sp.target_nc, nz, ngf,
-                                   crop, sp.n_up)
+                                   crop, sp.n_up, sp.dtype)
 
     def finish(model):
-        return model.to(device).eval()
+        model = model.to(device).eval()
+        if sp.dtype != torch.float32:
+            for name, p in model.named_parameters():
+                if "se" not in name.split(".") and p.dtype == torch.float32:
+                    p.data = p.data.to(sp.dtype)
+        return model
 
     model = build(sp.ngf, sp.nz, sp.crop_size)
     if checkpoint_path == "random":

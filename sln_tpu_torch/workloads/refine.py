@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import SizeInfo, build_graphs
 from sln_tpu_torch.data.batch import SceneBatch
+from sln_tpu_torch.models.layers import fp32_accumulation
 from sln_tpu_torch.models.vae import Sg2ScVAE, reparameterize
 from sln_tpu_torch.render import assets, scene as scene_lib
 
@@ -290,8 +291,9 @@ class Refiner:
             noise = self.noise(self.k)
         self.k += 1
         self.opt.zero_grad(set_to_none=True)
-        total, aux, *_ = self.forward(noise)
-        total.backward()
+        with fp32_accumulation():
+            total, aux, *_ = self.forward(noise)
+            total.backward()
         self.opt.step()
         return {k: v.detach() for k, v in aux.items()}
 

@@ -339,18 +339,13 @@ def test_gan_shade_entry_point_writes_pngs(small, tmp_path):
 
 
 def test_unported_paths_raise(small, tmp_path):
-    """bf16 shading (ROADMAP item 10), the Blender mask render (item 8)
-    and the z-sharded colorize (item 9) raise, naming their item."""
+    """The Blender mask render (ROADMAP item 8b) and the z-sharded colorize
+    (item 9) raise, naming their item."""
     _, _, path = small
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tg.make_spade_model(port_cfg(tmp_path, compute_dtype="bfloat16"),
-                            "random", device="cpu")
     base = ["--gan_shade", "--device", "cpu", "--synthetic", "8",
             "--allow_random_weights", "--spade_checkpoint", path,
             "--test_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        entry.main(base + ["--spade_dtype", "bfloat16"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         entry.main(base + ["--semantic_source", "blender"])
     model = tg.make_spade_model(tcfg.default_config(), path, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
