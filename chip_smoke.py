@@ -114,19 +114,36 @@ Phases, each printing a line as it ends:
               image difference from fp32, imgs/s and a decode chunk's ms
               beside fp32's and the bf16 conv-FLOP bound, and the decode on
               cuDNN's and on im2col + cuBLAS's deterministic bf16 convs
-  10. times   active chunks per tile and work items at 96 px / 8 rooms and
+  10. draw3d  `--draw_3d` on the card: `--batch_gen` (16 val rooms, 64
+              layouts), then `--draw_3d --renderer preview` and `--renderer
+              auto` through main at 256 px (no Blender binary on the card:
+              auto says it falls back; 64 PNGs each, the same bytes; one
+              forward call, two launches, per layout), `--renderer blender`
+              unavailable and `--gan_shade --semantic_source blender`
+              raising BlenderNotAvailable; 8 layouts' kernel renders against
+              the plain dense soft_rasterize on the card and 2 against the
+              CPU (no class-mask flip, the same foreground and winning
+              classes, depth within TOL["depth"]), one layout twice (the
+              same bits); layouts/s (CUDA events, no files; and through main
+              with the PNG writes) and the geometry / kernel / shading
+              split; `--gan_shade --semantic_source files` on masks and
+              .npy depth written in the Blender artifact names (read back
+              to the written channels, 200 PNGs); `--fine_tune
+              --save_semantic_gifs` (its PNG and GIF dumps, and the main
+              phase's loss history bit for bit)
+  11. times   active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
               8-room shapes and both kernels' at 256 px (CUDA events),
               beside each kernel's bound; each kernel's device time split
               between its launches (torch.profiler)
-  11. profile torch.profiler over three 8-room refine steps: device busy
+  12. profile torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
 Then one JSON line of kernel records, the refine, sampling, train, spade,
 spade_train and culling lines, one line per bf16 group (bf16_train,
-bf16_sampling, bf16_refine, bf16_shading), the card's nvidia-smi line, and
-as the last
+bf16_sampling, bf16_refine, bf16_shading), the draw3d line, the card's
+nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed phase raises, so the script
 exits non-zero and prints no result. All outputs go to a temporary directory
 that is removed at the end.
@@ -137,28 +154,30 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import io
 import dataclasses
 import json
 import os
 import pickle
 import re
 import shutil
-import struct
 import subprocess
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
 
 from sln_tpu_torch import kernels, test as entry
 from sln_tpu_torch.config import TrainConfig, default_config
+from sln_tpu_torch.data.vocab import NYU40_CLASSES
 from sln_tpu_torch.data.augment import build_graphs, draw_graph_randomness
 from sln_tpu_torch.models.vae import reparameterize
-from sln_tpu_torch.render import assets, scene as scene_lib
+from sln_tpu_torch.render import assets, blender_bridge, image_io, preview
 from sln_tpu_torch.render import rasterizer as raster
 from sln_tpu_torch.render import rasterizer_cuda as rc
+from sln_tpu_torch.render import scene as scene_lib
+from sln_tpu_torch.render.blender import scene_spec
 from sln_tpu_torch.spade.discriminator import instance_normed_biases
 from sln_tpu_torch.spade.losses import GanState, make_gan_train_step
 from sln_tpu_torch.spade.spectral import SpectralConv
@@ -969,26 +988,6 @@ def train_phase(tmp: str, device, smi: str, recipe: bool) -> dict:
     return result
 
 
-def png_shape(path: str):
-    """(height, width, channels) of an 8-bit RGB PNG, read with the
-    standard library; raises unless its pixel data decompresses to
-    exactly that size."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path}: not a PNG")
-    pos, chunks = 8, {}
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
-    if (depth, color) != (8, 2) or len(zlib.decompress(
-            chunks[b"IDAT"])) != h * (1 + 3 * w):
-        raise AssertionError(f"{path}: not 8-bit RGB of {w} x {h}")
-    return h, w, 3
-
-
 def conv_flops(model, fn) -> float:
     """The operations (FMA = 2) of every Conv2d, SpectralConv and Linear
     that fn runs, counted from their shapes."""
@@ -1076,7 +1075,7 @@ def spade_phase(cfg, tmp: str, device, smi: str) -> dict:
         if len(paths) != SPADE_ROOMS * 50 or sorted(paths) != sorted(
                 os.path.join(out_dir, f) for f in os.listdir(out_dir)):
             raise AssertionError(f"--gan_shade wrote {len(paths)} PNGs")
-        shapes = {png_shape(p) for p in paths}
+        shapes = {image_io.read_png(p).shape for p in paths}
         if shapes != {(model.crop_size, model.crop_size, 3)}:
             raise AssertionError(f"--gan_shade PNG shapes {shapes}")
         if launches != 2 * SPADE_ROOMS or rc.BWD_LAUNCHES:
@@ -1765,7 +1764,7 @@ def bf16_shading(cfg, tmp: str, device, smi: str, fp32: dict) -> dict:
     torch.cuda.synchronize()
     shade_s = time.perf_counter() - t0
     launches = rc.FWD_LAUNCHES
-    shapes = {png_shape(p) for p in paths}
+    shapes = {image_io.read_png(p).shape for p in paths}
     print(f"  --gan_shade --spade_dtype bfloat16: {len(paths)} PNGs in "
           f"{shade_s:.1f} s; rasterizer launches fwd {launches}, bwd "
           f"{rc.BWD_LAUNCHES}", flush=True)
@@ -1845,6 +1844,320 @@ def bf16_shading(cfg, tmp: str, device, smi: str, fp32: dict) -> dict:
             "fp32_decode10_ms": fp32["decode10_ms"],
             "decode10_bound_ms": dec_bound, "decode10_route": route,
             "decode10_route_ms": route_ms}
+
+
+# the draw3d phase: --batch_gen's layouts of DRAW3D_ROOMS val rooms (4 each)
+# rendered by the preview at the CLI's 256 px
+DRAW3D_ROOMS = 16
+DRAW3D_PX = 256
+
+
+def _captured(fn):
+    """(fn(), what it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def _with_layouts(src: str, dst: str) -> str:
+    """A test dir at dst holding src's data_extracted.json."""
+    os.makedirs(os.path.join(dst, "data"), exist_ok=True)
+    shutil.copy(os.path.join(src, "data", "data_extracted.json"),
+                os.path.join(dst, "data", "data_extracted.json"))
+    return dst
+
+
+def preview_gate(name, got, want) -> dict:
+    """The kernels phase's culled-against-dense gate on a preview render
+    (depth (1, S, S), NYU-40 classes (1, S, S, 40)): depth within
+    TOL["depth"], no class-mask value flipped at 0.5, the same foreground,
+    the same winning class wherever the top two differ by more than 1e-3."""
+    (d_g, c_g), (d_w, c_w) = got, want
+    check_close(f"{name} depth", d_g, d_w, *TOL["depth"])
+    flips = int(((c_g > 0.5) != (c_w > 0.5)).sum())
+    fg_g = (c_g.sum(-1) > 0.5) & (d_g < preview.Z_FAR * 0.99)
+    fg_w = (c_w.sum(-1) > 0.5) & (d_w < preview.Z_FAR * 0.99)
+    top2 = c_w.topk(2, -1).values
+    clear = fg_w & (top2[..., 0] - top2[..., 1] > 1e-3)
+    argmax_diff = int((c_g.argmax(-1) != c_w.argmax(-1))[clear].sum())
+    if flips or not torch.equal(fg_g, fg_w) or argmax_diff:
+        raise AssertionError(f"{name}: {flips} class-mask flips, "
+                             f"{int((fg_g != fg_w).sum())} foreground "
+                             f"pixels differ, {argmax_diff} winning classes "
+                             "differ")
+    return {"depth_max_abs_err": max_err(d_g, d_w),
+            "classes_max_abs_err": max_err(c_g, c_w)}
+
+
+def draw3d_phase(tmp: str, device, smi: str, fine_tune_hist) -> dict:
+    """--draw_3d on the card: the preview through main under each renderer
+    (no Blender binary here), its kernel against the plain dense render and
+    the CPU, its rate; --gan_shade from Blender-named files; the refine
+    dumps of --save_semantic_gifs. Returns its numbers and the forward
+    kernel's launches."""
+    with phase("draw3d"):
+        root = os.path.join(tmp, "draw3d")
+        common_argv = ["--output_dir", CHECKPOINT.output_dir,
+                       "--checkpoint_name", CHECKPOINT.checkpoint_name,
+                       "--device", device.type]
+        entry.main(["--batch_gen", "--synthetic", str(4 * DRAW3D_ROOMS),
+                    *common_argv, "--test_dir", root])
+        layouts = list(scene_spec.iter_extracted_layouts(root))
+        n = len(layouts)
+        if n != 4 * DRAW3D_ROOMS:
+            raise AssertionError(f"--batch_gen wrote {n} layouts")
+        found = shutil.which("blender")
+        print(f"  shutil.which('blender'): {found}", flush=True)
+        if found is not None:
+            raise AssertionError("this phase expects no Blender binary")
+
+        # the preview through main: one forward call (two launches) per
+        # layout, nothing else
+        runs = {}
+        for renderer in ("preview", "auto"):
+            test_dir = _with_layouts(root, os.path.join(tmp, renderer))
+            rc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            count, text = _captured(lambda: entry.main([
+                "--draw_3d", "--renderer", renderer, "--test_dir", test_dir,
+                "--device", device.type]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[renderer] = {"wall_s": wall, "fwd": rc.FWD_LAUNCHES,
+                              "bwd": rc.BWD_LAUNCHES, "dir": os.path.join(
+                                  test_dir, "data", "rendered")}
+            if count != n or rc.FWD_LAUNCHES != 2 * n or rc.BWD_LAUNCHES:
+                raise AssertionError(
+                    f"--draw_3d --renderer {renderer}: {count} images, "
+                    f"launches fwd {rc.FWD_LAUNCHES} / bwd "
+                    f"{rc.BWD_LAUNCHES} for {n} layouts")
+            fallback = "using the rasterizer preview renderer" in text
+            if fallback != (renderer == "auto"):
+                raise AssertionError(f"--renderer {renderer} printed: "
+                                     f"{text[:300]}")
+            print(f"  --draw_3d --renderer {renderer}: {count} PNGs in "
+                  f"{wall:.2f} s (layouts, render, PNG writes); launches "
+                  f"fwd {rc.FWD_LAUNCHES}, bwd {rc.BWD_LAUNCHES}"
+                  + ("; printed the fallback to the preview" if fallback
+                     else ""), flush=True)
+        names = sorted(os.listdir(runs["preview"]["dir"]))
+        want = sorted(scene_spec.color_filename(r, k)
+                      for r, k, *_ in layouts)
+        if names != want or sorted(os.listdir(runs["auto"]["dir"])) != want:
+            raise AssertionError(f"--draw_3d wrote {names[:4]}...")
+        shapes = {image_io.read_png(os.path.join(runs["preview"]["dir"],
+                                                 f)).shape for f in names}
+        if shapes != {(DRAW3D_PX, DRAW3D_PX, 3)}:
+            raise AssertionError(f"preview PNG shapes {shapes}")
+        for f in names:
+            with open(os.path.join(runs["preview"]["dir"], f), "rb") as a, \
+                    open(os.path.join(runs["auto"]["dir"], f), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{f}: auto and preview differ")
+        print(f"  {n} PNGs of {DRAW3D_PX} x {DRAW3D_PX} x 3 (read_png); "
+              "auto's bytes equal preview's", flush=True)
+        none, text = _captured(lambda: entry.main([
+            "--draw_3d", "--renderer", "blender", "--device", device.type,
+            "--test_dir", _with_layouts(root, os.path.join(tmp, "blender"))]))
+        if none is not None or "draw_3d unavailable" not in text:
+            raise AssertionError(f"--renderer blender: {text[:300]}")
+        try:
+            entry.main(["--gan_shade", "--semantic_source", "blender",
+                        "--synthetic", "32", *common_argv,
+                        "--test_dir", os.path.join(tmp, "gan_blender")])
+            raise AssertionError("--semantic_source blender ran without "
+                                 "a Blender binary")
+        except blender_bridge.BlenderNotAvailable as e:
+            print(f"  --renderer blender: 'draw_3d unavailable'; --gan_shade"
+                  f" --semantic_source blender raised BlenderNotAvailable "
+                  f"({str(e)[:40]}...)", flush=True)
+
+        # the kernel against the plain dense render on the card, and
+        # against the CPU; the same bits twice
+        bank, shells = scene_spec.load_bank()
+        S = DRAW3D_PX
+        dense, cpu = [], []
+        for i, (_, _, objs, boxes, angles) in enumerate(layouts[:8]):
+            geom, focal = preview.layout_geometry(objs, boxes, angles, bank,
+                                                  shells, S, device)
+            with torch.no_grad():
+                k = preview.rasterize_nyu(geom, S)
+                if not all(torch.equal(a, b) for a, b in zip(
+                        k, preview.rasterize_nyu(geom, S))):
+                    raise AssertionError(f"layout {i}: two kernel renders "
+                                         "differ")
+                dense.append(preview_gate(
+                    f"layout {i} kernel vs dense", k, preview.rasterize_nyu(
+                        geom, S, raster=raster.soft_rasterize)))
+                if i < 2:
+                    g_cpu, _ = preview.layout_geometry(
+                        objs, boxes, angles, bank, shells, S, "cpu")
+                    on_cpu = preview.rasterize_nyu(g_cpu, S)
+                    cpu.append(preview_gate(
+                        f"layout {i} card vs CPU", k,
+                        tuple(x.to(device) for x in on_cpu)))
+        objs, boxes, angles = layouts[0][2:]
+        twice = [preview.render_preview(objs, boxes, angles, bank, shells,
+                                        S, device=device) for _ in range(2)]
+        if not torch.equal(*twice):
+            raise AssertionError("two preview renders of one layout differ")
+        gate = {k: max(d[k] for d in dense) for k in dense[0]}
+        gate_cpu = {k: max(d[k] for d in cpu) for k in cpu[0]}
+        print(f"  8 layouts, kernel vs plain dense soft_rasterize on the "
+              f"card: depth max abs err {gate['depth_max_abs_err']:.3e}, "
+              f"classes {gate['classes_max_abs_err']:.3e}, 0 mask flips, "
+              f"same foreground and winning classes; 2 layouts card vs CPU:"
+              f" depth {gate_cpu['depth_max_abs_err']:.3e}, classes "
+              f"{gate_cpu['classes_max_abs_err']:.3e}; one layout rendered "
+              "twice: the same bits", flush=True)
+
+        # the rate: CUDA events around the renders (no files), then each
+        # stage synchronised on its own
+        for args in layouts[:2]:
+            preview.render_preview(*args[2:], bank, shells, S, device=device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for args in layouts:
+            preview.render_preview(*args[2:], bank, shells, S, device=device)
+        end.record()
+        torch.cuda.synchronize()
+        render_ms = start.elapsed_time(end) / n
+        stages = {"geometry": 0.0, "kernel": 0.0, "shade": 0.0}
+        kernel_dev_ms = 0.0
+        with torch.no_grad():
+            for args in layouts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                geom, focal = preview.layout_geometry(*args[2:], bank, shells,
+                                                      S, device)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                start.record()
+                d, c = preview.rasterize_nyu(geom, S)
+                end.record()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                kernel_dev_ms += start.elapsed_time(end)
+                preview.shade(d[0], c[0], focal, preview.Z_FAR)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+                    stages[key] += dt * 1e3 / n
+        total = sum(stages.values())
+        share = {k: v / total for k, v in stages.items()}
+        rate = 1e3 / render_ms
+        print(f"  preview rate: {render_ms:.3f} ms per layout (CUDA events "
+              f"over {n} layouts, no files) = {rate:.1f} layouts/s; with "
+              f"the PNG writes, through main: {n / runs['preview']['wall_s']:.1f}"
+              f" layouts/s; per layout, each stage synchronised: geometry "
+              f"{stages['geometry']:.3f} ms ({share['geometry']:.1%}), "
+              f"pack + cull + kernel + scatter {stages['kernel']:.3f} ms "
+              f"({share['kernel']:.1%}; {kernel_dev_ms / n:.3f} ms by CUDA "
+              f"events), shading {stages['shade']:.3f} ms "
+              f"({share['shade']:.1%}); on {smi}", flush=True)
+
+        # --gan_shade from Blender-named files: the first four val rooms'
+        # masks and .npy depth, from the port's rasterizer render
+        cfg = default_config().replace(train=CHECKPOINT)
+        sem = os.path.join(tmp, "files", "data", "semantic_masks")
+        os.makedirs(sem)
+        val, size_info = common.load_arrays(8, cfg, device,
+                                            synthetic_seed=99)
+        rcfg, bank_host, dbank = gan_shade._render_setup(cfg, 256, device)
+        written = {}
+        for i in range(SPADE_ROOMS):
+            room_id = str(int(val["room_ids"][i]))
+            b = gan_shade._room_batch(val, i, size_info, cfg, 0, device)
+            with torch.no_grad():
+                ch = gan_shade.render_scene_channels(b, bank_host, dbank,
+                                                     rcfg).cpu().numpy()
+            name = scene_spec.pred_name(room_id, 0)
+            depth = np.where(ch[0] < 0, 1e10, ch[0]).astype(np.float32)
+            np.save(os.path.join(sem, name + "_depth.npy"), depth)
+            masks = ch[1:41] > 0.5
+            for c in np.nonzero(masks.any((1, 2)))[0]:
+                image_io.write_png(os.path.join(sem, scene_spec.mask_filename(
+                    name, NYU40_CLASSES[c])),
+                    np.repeat(masks[c, ..., None] * np.uint8(255), 3, -1))
+            d = depth - depth.min()
+            dmax = d[d < 20].max()
+            written[room_id] = np.concatenate([
+                ((np.clip(d, 0, dmax) / dmax - 0.5) * 2.0)[None],
+                masks.astype(np.float32)]).astype(np.float32)
+        # the loader keeps the files whose names contain the room id (as
+        # the JAX package's does), so a room whose id lies inside another
+        # room's file names ("0" in every "_pred_00_") reads theirs too
+        names_of = {r: [f for f in os.listdir(sem) if f.startswith(
+            scene_spec.pred_name(r, 0))] for r in written}
+        exact = [r for r in written if not any(
+            r in f for o, fs in names_of.items() if o != r for f in fs)]
+        for room_id in exact:
+            got_in = gan_shade.spade_input_from_files(sem, room=room_id)
+            if not np.array_equal(got_in, written[room_id]):
+                raise AssertionError(f"room {room_id}: the 41 channels read "
+                                     "back differ from those written")
+        if len(exact) < 2:
+            raise AssertionError(f"only rooms {exact} have unambiguous "
+                                 "file names")
+        t0 = time.perf_counter()
+        paths = entry.main(["--gan_shade", "--semantic_source", "files",
+                            "--synthetic", "32", *common_argv,
+                            "--spade_checkpoint", SPADE_CHECKPOINT,
+                            "--test_dir", os.path.join(tmp, "files")])
+        files_s = time.perf_counter() - t0
+        shapes = {image_io.read_png(p).shape for p in paths}
+        if len(paths) != SPADE_ROOMS * 50 or shapes != {(256, 256, 3)}:
+            raise AssertionError(f"--semantic_source files wrote "
+                                 f"{len(paths)} PNGs of {shapes}")
+        print(f"  --gan_shade --semantic_source files: {SPADE_ROOMS} rooms' "
+              f"masks and depth written as Blender names them; rooms "
+              f"{exact} read back to the same 41 channels (the others' ids "
+              f"lie inside other rooms' file names); {len(paths)} PNGs of "
+              f"256 x 256 x 3 in {files_s:.1f} s", flush=True)
+
+        # the refine dumps, and a loss history the flag does not move
+        rc.reset_launch_counts()
+        hist = entry.main(["--fine_tune", "--synthetic", "32",
+                           "--save_semantic_gifs", *common_argv,
+                           "--test_dir", os.path.join(tmp, "gifs")])
+        ft_fwd, ft_bwd = rc.FWD_LAUNCHES, rc.BWD_LAUNCHES
+        if hist != fine_tune_hist:
+            raise AssertionError("--save_semantic_gifs moved the fine_tune "
+                                 "loss history")
+        (room, _), = hist.items()
+        out = os.path.join(tmp, "gifs", "data", "finetune", room)
+        files = set(os.listdir(out))
+        last = f"{ITERS - 1:03d}"
+        need = {f"{p}_depth.{x}" for p in ("target", "000", last)
+                for x in ("png", "gif")}
+        need |= {"z_value.pkl", "bbox_rot_0.pkl", f"bbox_rot_{ITERS - 1}.pkl",
+                 "bbox_rot_gt.pkl", "000_wall.gif", f"{last}_wall.gif"}
+        if not need <= files:
+            raise AssertionError(f"fine_tune dumps miss {need - files}")
+        gifs = sorted(f for f in files - need if f.endswith(".gif"))
+        pngs = {image_io.read_png(os.path.join(out, f)).shape
+                for f in files if f.endswith(".png")}
+        if pngs != {(96, 96, 4)}:
+            raise AssertionError(f"fine_tune depth PNGs {pngs}")
+        print(f"  --fine_tune --save_semantic_gifs: {len(files)} files "
+              f"(depth PNG + GIF of target, 000 and {last}, {len(gifs) + 2}"
+              f" class GIFs, the pkls), PNGs 96 x 96 x 4 (read_png); loss "
+              f"history equal to the main phase's bit for bit; launches fwd "
+              f"{ft_fwd}, bwd {ft_bwd}", flush=True)
+    return {"layouts": n, "px": S, "render_ms": render_ms,
+            "layouts_per_s": rate,
+            "layouts_per_s_with_writes": n / runs["preview"]["wall_s"],
+            "stage_ms": stages, "stage_share": share,
+            "kernel_event_ms": kernel_dev_ms / n, "dense_gate": gate,
+            "cpu_gate": gate_cpu, "gan_shade_files_pngs": len(paths),
+            "files_rooms_read_back": exact,
+            "fine_tune_files": len(files), "smi": smi,
+            "fwd_launches": runs["preview"]["fwd"] + runs["auto"]["fwd"],
+            "fine_tune_launches": [ft_fwd, ft_bwd]}
+
 
 
 def main() -> None:
@@ -2105,6 +2418,11 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
         bf16["shading"] = bf16_shading(cfg, tmp, device, smi, shading)
         launches["fwd"] += bf16["shading"]["fwd_launches"]
 
+    drawing = draw3d_phase(tmp, device, smi, hist)
+    launches["fwd"] += (drawing["fwd_launches"]
+                        + drawing["fine_tune_launches"][0])
+    launches["bwd"] += drawing["fine_tune_launches"][1]
+
     fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
 
@@ -2134,6 +2452,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     print(json.dumps({"culling": culling}))
     for group, numbers in bf16.items():
         print(json.dumps({f"bf16_{group}": numbers}))
+    print(json.dumps({"draw3d": drawing}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

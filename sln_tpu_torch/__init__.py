@@ -7,21 +7,24 @@ kernels, are CUDA C++ kernels in `csrc/`, built with `nvcc` at first use
 (`sln_tpu_torch.kernels`).
 
 This package imports nothing of JAX or of `sln_tpu`; it keeps its own
-copies of the host-side modules it needs.
+copies of the host-side modules it needs. Importing the package itself
+imports no torch: the Blender-side scripts (`render/blender/`) run in
+Blender's bundled Python, which has none, and import
+`sln_tpu_torch.render.blender.scene_spec` through it.
 """
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(name: str = "cuda") -> torch.device:
+def resolve_device(name: str = "cuda") -> "torch.device":
     """Entry points run on the card unless the caller asks for the CPU.
 
     Raises when CUDA is asked for and there is none: nothing falls back to
     the CPU silently."""
+    import torch
+
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

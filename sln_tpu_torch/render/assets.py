@@ -132,13 +132,22 @@ def retrieve_models(objs: np.ndarray, boxes_abs: np.ndarray,
 
 class ShellBank(NamedTuple):
     """Bank of room shells (wall/floor/ceiling meshes), normalized to the
-    unit cube so one entry serves every room size. Entry 0 is the
-    procedural exact-fit shell, the only one this port builds (banked
-    SUNCG shells and their retrieval are not ported)."""
+    unit cube so one entry serves every room size.
+
+    The reference retrieves real SUNCG shells per room by aspect ratio
+    (models/misc.py:123-191) and deletes occluding wall vertices per room
+    (diff_render.py:200-213). A banked shell is unit-normalized when the
+    bank is built, with the bad-wall drop baked into face_valid
+    (`shell_wall_drop_normalized`), and retrieval is an argmin over the
+    stored original aspect ratios (`retrieve_shell_np`). Entry 0 is the
+    procedural exact-fit shell; a bank of real shells is read from an .npz
+    (render/blender/scene_spec.py `load_bank`), and building one is not
+    ported."""
     verts: np.ndarray        # (S, Vs, 3) in [0, 1]^3
     faces: np.ndarray        # (S, Fs, 3) int32, padded with 0
     part: np.ndarray         # (S, Fs) 0=wall 1=floor 2=ceiling
-    face_valid: np.ndarray   # (S, Fs) bool
+    face_valid: np.ndarray   # (S, Fs) bool (bad-wall drops applied)
+    ratio: np.ndarray        # (S, 2) original (Y/X, Z/X) bbox ratios
 
 
 def procedural_shell_bank(subdiv: int = 4) -> ShellBank:
@@ -146,7 +155,38 @@ def procedural_shell_bank(subdiv: int = 4) -> ShellBank:
     sv, sf, sp = room_shell(subdiv)
     return ShellBank(
         verts=sv[None], faces=sf[None], part=sp[None],
-        face_valid=np.ones((1, len(sf)), bool))
+        face_valid=np.ones((1, len(sf)), bool),
+        ratio=np.asarray([[1.0, 1.0]], np.float32))
+
+
+def retrieve_shell_np(room_dims, shells: ShellBank) -> int:
+    """Argmin aspect-ratio shell retrieval (reference wall_retrieve,
+    render_room_color.py:55-68: ratio = (Y/X, Z/X), L1 distance)."""
+    dims = np.asarray(room_dims, np.float64)
+    target = np.array([dims[1] / max(dims[0], 1e-6),
+                       dims[2] / max(dims[0], 1e-6)])
+    dist = np.abs(np.asarray(shells.ratio, np.float64)
+                  - target[None]).sum(-1)
+    return int(np.argmin(dist))
+
+
+def shell_wall_drop_normalized(verts: np.ndarray, part_of_vert: np.ndarray
+                               ) -> np.ndarray:
+    """Bad-wall vertex-drop mask in unit-room coordinates (reference
+    diff_render.py / render_room_color.py:271-298 heuristic with X=Z=1):
+    drop wall vertices with z > 0.2 that sit inside 0.1 < x < 0.9; if
+    >70% of wall vertices lie at z > 0.9 the whole wall plane faces the
+    camera — drop all wall vertices."""
+    v = np.asarray(verts, np.float64)
+    is_wall = np.asarray(part_of_vert) == 0
+    frontish = v[:, 2] > 0.2
+    interior = (v[:, 0] > 0.1) & (v[:, 0] < 0.9)
+    drop = is_wall & frontish & interior
+    n_wall = max(int(is_wall.sum()), 1)
+    score = float((is_wall & (v[:, 2] > 0.9)).sum()) / n_wall
+    if score > 0.7:
+        return is_wall.copy()
+    return drop
 
 
 def room_shell(subdiv: int = 4) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -5,6 +5,9 @@ test.py's modes:
     --measure_acc_l1_std   L1 / scene-graph accuracy / sample std
     --heat_map             20,000 sampled layouts of one scene graph + PNGs
     --draw_2d              top-down plot of the demo layout
+    --draw_3d              3D renders of the --batch_gen layouts: Blender
+                           if a binary is found, else the rasterizer-shaded
+                           preview (--renderer auto | blender | preview)
     --fine_tune            render-and-refine
     --gan_shade            SPADE shading of rendered val rooms, num_z PNGs
                            per room
@@ -60,15 +63,13 @@ def apply_reference_compat_flags(args: argparse.Namespace) -> None:
 
 
 def parse_args(argv=None):
-    """Every flag and mode the root test.py accepts; the unported ones
-    parse and raise when used (check_ported)."""
+    """Every flag and mode the root test.py accepts."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batch_gen", action="store_true")
     p.add_argument("--measure_acc_l1_std", action="store_true")
     p.add_argument("--heat_map", action="store_true")
     p.add_argument("--draw_2d", action="store_true")
-    p.add_argument("--draw_3d", action="store_true",
-                   help="not ported (ROADMAP item 8a)")
+    p.add_argument("--draw_3d", action="store_true")
     p.add_argument("--fine_tune", action="store_true")
     p.add_argument("--gan_shade", action="store_true")
     p.add_argument("--suncg_train_dir", default="metadata/data_rot_train.json")
@@ -96,8 +97,7 @@ def parse_args(argv=None):
     p.add_argument("--room_ids", default="", type=str,
                    help="comma-separated room ids for --fine_tune")
     p.add_argument("--save_semantic_gifs", action="store_true",
-                   help="per-class mask GIFs during --fine_tune; not "
-                        "ported (ROADMAP item 8a)")
+                   help="per-class mask GIFs during --fine_tune")
     p.add_argument("--num_z", default=50, type=int,
                    help="z samples per room for --gan_shade (reference "
                         "test.py:94)")
@@ -125,17 +125,18 @@ def parse_args(argv=None):
     p.add_argument("--semantic_source", default="rasterizer",
                    choices=["rasterizer", "blender", "files"],
                    help="--gan_shade mask/depth source: the rasterizer "
-                        "(default) or existing files in "
-                        "<test_dir>/data/semantic_masks; blender is not "
-                        "ported (ROADMAP item 8b)")
+                        "(default), a Blender render into "
+                        "<test_dir>/data/semantic_masks, or existing files "
+                        "there")
     p.add_argument("--renderer", default="auto",
                    choices=["auto", "blender", "preview"],
-                   help="--draw_3d backend; not ported (preview: ROADMAP "
-                        "item 8a, blender: item 8b)")
-    # accepted as the root test.py accepts them; the Blender bridge is
-    # not ported (ROADMAP item 8b)
-    p.add_argument("--blender_path", default="", type=str)
-    p.add_argument("--blender_script", default="", type=str)
+                   help="--draw_3d backend: auto tries Blender, then the "
+                        "rasterizer-shaded preview")
+    p.add_argument("--blender_path", default="", type=str,
+                   help="directory holding the blender binary (default: "
+                        "PATH)")
+    p.add_argument("--blender_script", default="", type=str,
+                   help="Blender script instead of the bundled one")
     # the model and data flags of the reference's global Options
     # (options/options.py:18-61); a restored checkpoint's weights must
     # match them, as in the reference
@@ -165,28 +166,6 @@ def parse_args(argv=None):
     args = p.parse_args(argv)
     apply_reference_compat_flags(args)
     return args
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a flag that
-    parses but whose path the port does not have; a flag left at its
-    default never raises."""
-    if args.renderer == "blender":
-        raise NotImplementedError(
-            "--renderer blender (the Blender bridge) is not ported "
-            "(ROADMAP item 8b)")
-    if args.draw_3d or args.renderer == "preview":
-        raise NotImplementedError(
-            "--draw_3d and --renderer preview (the rasterizer-shaded "
-            "preview) are not ported (ROADMAP item 8a)")
-    if args.save_semantic_gifs:
-        raise NotImplementedError(
-            "--save_semantic_gifs (the refine loop's GIF dumps) is not "
-            "ported (ROADMAP item 8a)")
-    if args.gan_shade and args.semantic_source == "blender":
-        raise NotImplementedError(
-            "--semantic_source blender (the Blender mask/depth render) is "
-            "not ported (ROADMAP item 8b); use rasterizer or files")
 
 
 def build_cfg(args):
@@ -261,10 +240,10 @@ DEMO_OBJS = [20, 18, 30, 3, 11, 0]
 def main(argv=None):
     """Returns the workload's result: the output path (--batch_gen,
     --draw_2d), the metrics (--measure_acc_l1_std), the PNG paths
-    (--heat_map, --gan_shade) or the per-room loss history
-    (--fine_tune)."""
+    (--heat_map, --gan_shade), the number of preview images (--draw_3d;
+    None when Blender rendered them or is unavailable) or the per-room loss
+    history (--fine_tune)."""
     args = parse_args(argv)
-    check_ported(args)
     cfg = build_cfg(args)
     device = resolve_device(args.device)
     os.makedirs(args.test_dir, exist_ok=True)
@@ -321,6 +300,32 @@ def main(argv=None):
         print("Wrote", out)
         return out
 
+    if args.draw_3d:
+        # Photoreal Cycles render via the bundled modern-Blender script
+        # (render/blender/render_color.py), with the reference's subprocess
+        # contract (testing/test_plot3d.py:4-8). Without a blender binary
+        # (or with --renderer preview) the rasterizer-shaded preview renders
+        # the same layouts to the same artifact names (render/preview.py)
+        from sln_tpu_torch.render import blender_bridge
+        out = os.path.join(args.test_dir, "data", "rendered")
+        if args.renderer in ("auto", "blender"):
+            try:
+                blender_bridge.run_color_render(
+                    args.test_dir, args.blender_path or None,
+                    args.blender_script or None)
+                print(f"Blender render finished; images in {out}")
+                return None
+            except blender_bridge.BlenderNotAvailable as e:
+                if args.renderer == "blender":
+                    print(f"draw_3d unavailable: {e}")
+                    return None
+                print(f"no Blender binary ({e}); using the rasterizer "
+                      "preview renderer")
+        from sln_tpu_torch.render import preview
+        n = preview.run_preview_renders(args.test_dir, device=device)
+        print(f"preview render finished; {n} images in {out}")
+        return n
+
     if args.fine_tune:
         from sln_tpu_torch.workloads import refine
         model, _, val, size_info = setup(args, cfg, device, train=False)
@@ -328,17 +333,25 @@ def main(argv=None):
                     or [str(int(val["room_ids"][0]))])
         base = os.path.join(args.test_dir, "data", "finetune")
         dirs = [os.path.join(base, r) for r in room_ids]
-        return refine.finetune_rooms(model, val, size_info, cfg, room_ids,
-                                     dirs, device=device)
+        return refine.finetune_rooms(
+            model, val, size_info, cfg, room_ids, dirs,
+            save_semantic=args.save_semantic_gifs, device=device)
 
     if args.gan_shade:
         from sln_tpu_torch.workloads import gan_shade
         _, _, val, size_info = setup(args, cfg, device, train=False)
         out_dir = os.path.join(args.test_dir, "data", "SPADE_out")
         semantic_dir = None
-        if args.semantic_source == "files":
+        if args.semantic_source != "rasterizer":
             semantic_dir = os.path.join(args.test_dir, "data",
                                         "semantic_masks")
+            if args.semantic_source == "blender":
+                # the reference's two-process chain (test.py:79-95):
+                # Blender masks/depth first, then SPADE over the files
+                from sln_tpu_torch.render import blender_bridge
+                blender_bridge.run_mask_depth_render(
+                    args.test_dir, args.blender_path or None,
+                    args.blender_script or None)
         return gan_shade.run_gan_shade(
             val, size_info, cfg, num_z=args.num_z, save_dir=out_dir,
             spade_checkpoint=args.spade_checkpoint or None,

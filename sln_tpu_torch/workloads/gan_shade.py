@@ -28,11 +28,12 @@ from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import SizeInfo, build_graphs
 from sln_tpu_torch.data.vocab import NYU40_CLASSES
 from sln_tpu_torch.render import assets, scene as scene_lib
+from sln_tpu_torch.render.image_io import read_png, write_png
 from sln_tpu_torch.spade.generator import SPADEGenerator4
 from sln_tpu_torch.spade.port import load_reference_checkpoint, \
     params_from_jax
 from sln_tpu_torch.workloads import common
-from sln_tpu_torch.workloads.plot2d import MAPPED_COLORS, write_png
+from sln_tpu_torch.workloads.plot2d import MAPPED_COLORS
 
 Z_CHUNK = 10        # z samples per decode call (the JAX package's z_chunk)
 
@@ -95,16 +96,20 @@ def mask_class_from_stem(stem: str) -> str:
 
 def spade_input_from_files(semantic_dir: str, room: str = "") -> np.ndarray:
     """(41, S, S) from Blender-written EXR depth (or its .npy sidecar) and
-    mask PNGs (reference test_SPADE_shade.py:44-76)."""
-    import imageio.v2 as imageio
-
+    mask PNGs (reference test_SPADE_shade.py:44-76). The masks are read with
+    image_io.read_png; imageio is imported only for an EXR without its
+    sidecar, as the JAX package does (the card's machine has no imageio)."""
     files = [os.path.join(semantic_dir, f)
              for f in os.listdir(semantic_dir) if room in f]
     npys = sorted(f for f in files if f.endswith("_depth.npy"))
     exrs = sorted(f for f in files if f.endswith(".exr"))
     masks = [f for f in files if "depth" not in f and "orig" not in f
              and not f.endswith((".exr", ".npy"))]
-    depth = np.load(npys[0]) if npys else np.asarray(imageio.imread(exrs[0]))
+    if npys:
+        depth = np.load(npys[0])
+    else:
+        import imageio.v2 as imageio
+        depth = np.asarray(imageio.imread(exrs[0]))
     if depth.ndim == 3:
         depth = depth[..., 0]
     depth = depth - depth.min()
@@ -116,8 +121,9 @@ def spade_input_from_files(semantic_dir: str, room: str = "") -> np.ndarray:
     for path in masks:
         name = mask_class_from_stem(os.path.basename(path).split(".")[0])
         if name in classes_us:
-            buf[classes_us.index(name)] = np.asarray(
-                imageio.imread(path))[..., 0]
+            img = read_png(path)
+            buf[classes_us.index(name)] = img[..., 0] if img.ndim == 3 \
+                else img
     buf = (buf > 120).astype(np.float32)
     return np.concatenate([depth[None].astype(np.float32), buf], 0)
 

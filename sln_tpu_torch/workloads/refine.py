@@ -14,8 +14,12 @@ iteration 0 (diff_render.py:55-60, 84-89).
 Differences from the JAX package, by design: the model parameters are
 updated in place (finetune_rooms refines a copy per room, so the caller's
 model is untouched); randomness (graph draws, z0, angle noise) comes from
-explicit torch.Generators, whose streams differ from JAX's threefry; the
-per-room artifacts are the pkl files only (no GIF/PNG renders).
+explicit torch.Generators, whose streams differ from JAX's threefry.
+
+Each room's artifacts are the JAX package's: the pkl files, and the depth
+PNG + GIF of the target, of iteration 0 and of the last iteration (with
+`save_semantic`, one GIF per NYU-40 class with mass), written with
+render/image_io.py, outside the loop.
 """
 
 from __future__ import annotations
@@ -34,9 +38,11 @@ import torch.nn.functional as F
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import SizeInfo, build_graphs
 from sln_tpu_torch.data.batch import SceneBatch
+from sln_tpu_torch.data.vocab import NYU40_CLASSES
 from sln_tpu_torch.models.layers import fp32_accumulation
 from sln_tpu_torch.models.vae import Sg2ScVAE, reparameterize
 from sln_tpu_torch.render import assets, scene as scene_lib
+from sln_tpu_torch.render.image_io import write_gif, write_png_gray
 
 
 # ---------------------------------------------------------------------------
@@ -368,14 +374,41 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def save_channel_images(img: np.ndarray, folder: str, prefix: str,
+                        save_semantic: bool = False) -> None:
+    """Depth PNG + GIF (+ optional per-class mask GIFs) of a (70, S, S)
+    render stack — the reference save_images artifact set
+    (test_render_refine.py:144-163 writes `<prefix>_depth.gif` and
+    `<prefix>_<class>.gif` single-frame GIFs); the same files as the JAX
+    package's, written without matplotlib or imageio."""
+    os.makedirs(folder, exist_ok=True)
+    depth = img[0].copy()
+    depth = depth - depth.min()
+    finite_max = depth[depth < 10.0].max() if (depth < 10.0).any() else 1.0
+    depth = np.clip(depth, 0, finite_max) / max(finite_max, 1e-6)
+    write_png_gray(os.path.join(folder, f"{prefix}_depth.png"), depth)
+    write_gif(os.path.join(folder, f"{prefix}_depth.gif"),
+              (depth * 255.0).astype(np.uint8))
+    if save_semantic:
+        for i, cls in enumerate(NYU40_CLASSES):
+            mask = np.clip(img[1 + i], 0.0, 1.0)
+            if mask.max() <= 0:
+                continue  # skip empty classes (file-count sanity)
+            write_gif(os.path.join(
+                folder, f"{prefix}_{cls.replace(' ', '_')}.gif"),
+                (mask * 255.0).astype(np.uint8))
+
+
 def finetune_rooms(model: Sg2ScVAE, val_arrays, size_info: SizeInfo,
                    cfg: Config, room_ids, save_dirs,
                    num_iters: Optional[int] = None,
+                   save_semantic: bool = False,
                    device="cuda") -> Dict[str, List[dict]]:
     """Reference finetune_VAE (:243-377), one room at a time. Writes
-    z_value.pkl, bbox_rot_<k>.pkl (k = 0 and the last iteration) and
-    bbox_rot_gt.pkl into each room's save dir. Returns the per-room loss
-    history."""
+    z_value.pkl, bbox_rot_<k>.pkl (k = 0 and the last iteration),
+    bbox_rot_gt.pkl and the depth images of the target and of both k
+    (save_channel_images; with `save_semantic`, the class GIFs of both k)
+    into each room's save dir. Returns the per-room loss history."""
     ref = cfg.refine
     num_iters = num_iters or ref.num_iters
     rcfg = refine_render_config(cfg)
@@ -409,6 +442,7 @@ def finetune_rooms(model: Sg2ScVAE, val_arrays, size_info: SizeInfo,
             target_img = scene_lib.render_layout(
                 batch.objs, batch.boxes, gt_angles, batch.obj_mask,
                 model_idx_gt, bank, rcfg)                     # (1, 70, S, S)
+            save_channel_images(_np(target_img[0]), save_dir, "target")
 
             # iteration-0 retrieval + size cache from the PREDICTED layout
             boxes0, _ = room_model.decode(z0, batch)
@@ -424,7 +458,10 @@ def finetune_rooms(model: Sg2ScVAE, val_arrays, size_info: SizeInfo,
                                    cfg, z0)
 
         def dump(k):
-            _, _, boxes_pred, ang = refiner.snapshot(min(k, num_iters - 1))
+            _, imgs, boxes_pred, ang = refiner.snapshot(min(k,
+                                                            num_iters - 1))
+            save_channel_images(_np(imgs[0]), save_dir, str(k).zfill(3),
+                                save_semantic=save_semantic)
             with open(os.path.join(save_dir, f"bbox_rot_{k}.pkl"),
                       "wb") as f:
                 pickle.dump([room_id, _np(boxes_pred[0]), _np(ang[0]),

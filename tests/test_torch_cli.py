@@ -1,8 +1,8 @@
 """The port's entry points accept every invocation of the reference CLI
 that the root test.py accepts (tests/test_cli.py's REFERENCE_FLAGS with
 each of its TEST_MODES, read from that file so the two lists never drift);
-the flags whose paths are not ported raise NotImplementedError naming
-their ROADMAP item when used, and never at their defaults; --compute_dtype
+the flags that raised until their ROADMAP items were ported (8a, 8b) reach
+their paths, and every mode parses at its defaults; --compute_dtype
 and --spade_dtype reach the configuration and run, on the CPU at a tiny
 size, through main."""
 
@@ -63,17 +63,61 @@ def test_every_reference_invocation_parses(mode, monkeypatch):
     (["--fine_tune", "--save_semantic_gifs"], "8a"),
     (["--gan_shade", "--semantic_source", "blender"], "8b"),
 ])
-def test_unported_flags_raise_naming_their_item(argv, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\)"):
-        entry.main(argv + ["--device", "cpu", "--synthetic", "8",
-                           "--allow_random_weights",
-                           "--test_dir", str(tmp_path)])
+def test_unported_flags_raise_naming_their_item(argv, item, tmp_path,
+                                                monkeypatch):
+    """The invocations that raised until ROADMAP items 8a (the preview and
+    the refine dumps) and 8b (the Blender bridge) were ported now reach
+    their paths: each path is replaced by a recorder, the Blender bridge
+    finding no binary."""
+    from sln_tpu_torch.render import blender_bridge, preview
+    from sln_tpu_torch.workloads import gan_shade, refine
+
+    calls = []
+
+    def record(name, result=None):
+        def fn(*args, **kwargs):
+            calls.append((name, kwargs))
+            if isinstance(result, Exception):
+                raise result
+            return result
+        return fn
+
+    no_binary = blender_bridge.BlenderNotAvailable("no blender")
+    monkeypatch.setattr(blender_bridge, "run_color_render",
+                        record("color", no_binary))
+    monkeypatch.setattr(blender_bridge, "run_mask_depth_render",
+                        record("mask_depth"))
+    monkeypatch.setattr(preview, "run_preview_renders", record("preview", 3))
+    monkeypatch.setattr(refine, "finetune_rooms", record("fine_tune", {}))
+    monkeypatch.setattr(gan_shade, "run_gan_shade", record("gan_shade", []))
+    entry.main(argv + ["--device", "cpu", "--synthetic", "8",
+                       "--allow_random_weights",
+                       "--test_dir", str(tmp_path)])
+    names = [c[0] for c in calls]
+    renderer = argv[-1] if "--renderer" in argv else "auto"
+    if argv[0] == "--draw_3d":
+        assert names == {"auto": ["color", "preview"],
+                         "preview": ["preview"],
+                         "blender": ["color"]}[renderer]
+        assert item == ("8b" if renderer == "blender" else "8a")
+    elif argv[0] == "--fine_tune":
+        assert names == ["fine_tune"]
+        assert calls[0][1]["save_semantic"] == (
+            "--save_semantic_gifs" in argv)
+    else:
+        assert names == ["mask_depth", "gan_shade"]
+        assert calls[1][1]["semantic_dir"] == str(
+            tmp_path / "data" / "semantic_masks")
 
 
 @pytest.mark.parametrize("mode", TEST_MODES)
 def test_defaults_never_raise(mode):
-    argv = [] if mode == "--draw_3d" else [mode]
-    entry.check_ported(entry.parse_args(argv + ["--renderer", "auto"]))
+    """Every mode parses at its defaults into a configuration, with the
+    JAX package's default renderer and mask source."""
+    args = entry.parse_args([mode])
+    assert getattr(args, mode.lstrip("-")) is True
+    assert args.renderer == "auto" and args.semantic_source == "rasterizer"
+    assert entry.build_cfg(args).test_dir == args.test_dir
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

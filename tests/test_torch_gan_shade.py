@@ -36,7 +36,7 @@ from sln_tpu_torch.render import rasterizer as trz  # noqa: E402
 from sln_tpu_torch.render import scene as tscene  # noqa: E402
 from sln_tpu_torch.spade.generator import SPADEGenerator4  # noqa: E402
 from sln_tpu_torch.workloads import gan_shade as tg  # noqa: E402
-from sln_tpu_torch.workloads.plot2d import write_png  # noqa: E402
+from sln_tpu_torch.render.image_io import write_png  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
 torch.set_num_threads(2)
@@ -338,14 +338,18 @@ def test_gan_shade_entry_point_writes_pngs(small, tmp_path):
             ours, mpimg.imread(tmp_path / "ref.png")[..., :3])
 
 
-def test_unported_paths_raise(small, tmp_path):
-    """The Blender mask render (ROADMAP item 8b) and the z-sharded colorize
-    (item 9) raise, naming their item."""
+def test_unported_paths_raise(small, tmp_path, monkeypatch):
+    """The z-sharded colorize (ROADMAP item 9) raises, naming its item. The
+    Blender mask render (item 8b) is ported: with no blender binary it
+    raises BlenderNotAvailable, as the JAX package's does."""
+    from sln_tpu_torch.render.blender_bridge import BlenderNotAvailable
+
     _, _, path = small
     base = ["--gan_shade", "--device", "cpu", "--synthetic", "8",
             "--allow_random_weights", "--spade_checkpoint", path,
             "--test_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(BlenderNotAvailable):
         entry.main(base + ["--semantic_source", "blender"])
     model = tg.make_spade_model(tcfg.default_config(), path, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -1,6 +1,7 @@
 """The port stands alone: sln_tpu_torch and chip_smoke.py import nothing
-of JAX, flax, optax or the JAX package, and the port's entry point runs on
-the card unless asked for the CPU."""
+of JAX, flax, optax or the JAX package, its Blender-side scripts nothing
+beyond the standard library, numpy, Blender's modules and the port, and
+the port's entry point runs on the card unless asked for the CPU."""
 
 import ast
 import os
@@ -39,6 +40,31 @@ def _imported_modules(path):
                 yield node.args[0].value
 
 
+def _module_name(path):
+    rel = path.relative_to(REPO).with_suffix("")
+    parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+    return ".".join(parts)
+
+
+def blender_side_modules():
+    """Port modules that run only inside Blender: those whose source
+    imports bpy, directly or through another port module (`from pkg
+    import mod` counts as importing pkg.mod)."""
+    deps = {}
+    for path in PORT.rglob("*.py"):
+        names = set(_imported_modules(path))
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                names |= {f"{node.module}.{a.name}" for a in node.names}
+        deps[_module_name(path)] = names
+    blender = {m for m, names in deps.items() if "bpy" in names}
+    while True:
+        more = {m for m, names in deps.items() if names & blender} - blender
+        if not more:
+            return blender
+        blender |= more
+
+
 def test_source_scan_finds_no_forbidden_import():
     bad = []
     for path in _port_sources():
@@ -50,13 +76,17 @@ def test_source_scan_finds_no_forbidden_import():
 
 def test_every_module_imports_with_jax_blocked():
     """Import every port module and chip_smoke with jax, flax, optax and
-    sln_tpu made unimportable."""
+    sln_tpu made unimportable; the Blender-side modules, which need bpy,
+    are skipped (test_blender_side_modules_import_only_what_blender_has,
+    and tests/test_torch_blender.py imports them with a stub bpy)."""
+    blender = sorted(blender_side_modules())
     code = (
         "import sys, importlib, pkgutil\n"
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
         "import sln_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
-        "sln_tpu_torch.__path__, 'sln_tpu_torch.')]\n"
+        "sln_tpu_torch.__path__, 'sln_tpu_torch.')\n"
+        f"         if m.name not in {blender!r}]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "print(' '.join(names))\n")
@@ -69,6 +99,38 @@ def test_every_module_imports_with_jax_blocked():
     for module in ("losses", "loop", "checkpoint", "metrics", "cli",
                    "__main__"):
         assert f"sln_tpu_torch.train.{module}" in names
+    assert "sln_tpu_torch.render.blender.scene_spec" in names
+    assert "sln_tpu_torch.render.preview" in names
+
+
+def test_blender_side_modules_import_only_what_blender_has():
+    """The bpy scripts import nothing outside the standard library, numpy,
+    bpy, mathutils and the port; the port modules they reach import no
+    torch (Blender's bundled Python has none)."""
+    blender = blender_side_modules()
+    assert blender == {f"sln_tpu_torch.render.blender.{m}" for m in (
+        "bpy_scene", "driver", "render_color", "render_semantic_depth")}
+    allowed = set(sys.stdlib_module_names) | {"numpy", "bpy", "mathutils",
+                                              "sln_tpu_torch"}
+    bad = []
+    for path in PORT.rglob("*.py"):
+        if _module_name(path) in blender:
+            bad += [f"{path.name}: {m}" for m in _imported_modules(path)
+                    if m.split(".")[0] not in allowed]
+    assert not bad, bad
+    # what they reach imports no torch when imported (a function may
+    # import it when called: resolve_device does)
+    reached = ["__init__.py", "render/__init__.py", "data/__init__.py",
+               "workloads/__init__.py", "data/vocab.py", "render/assets.py",
+               "render/blender/__init__.py", "render/blender/scene_spec.py",
+               "workloads/plot2d.py", "render/image_io.py"]
+    for rel in reached:
+        tree = ast.parse((PORT / rel).read_text())
+        top = {a.name.split(".")[0] for n in tree.body
+               if isinstance(n, ast.Import) for a in n.names}
+        top |= {n.module.split(".")[0] for n in tree.body
+                if isinstance(n, ast.ImportFrom) and n.module}
+        assert top <= allowed - {"bpy", "mathutils"}, (rel, top)
 
 
 def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path):
