@@ -6,6 +6,7 @@
     python3 chip_smoke.py --train-recipe   # every phase, then the recipe
     python3 chip_smoke.py --spade-recipe   # every phase, then the shading
                                            # generator's whole recipe
+    python3 chip_smoke.py --parallel-only  # device, build, parallel
 
 Phases, each printing a line as it ends:
   1. device   the card must be there (else this exits non-zero); prints
@@ -131,19 +132,41 @@ Phases, each printing a line as it ends:
               to the written channels, 200 PNGs); `--fine_tune
               --save_semantic_gifs` (its PNG and GIF dumps, and the main
               phase's loss history bit for bit)
-  11. times   active chunks per tile and work items at 96 px / 8 rooms and
+  11. parallel data parallelism (sln_tpu_torch.parallel) over ranks, one
+              process each: `python -m sln_tpu_torch.train --num_data_shards
+              1` under a one-rank launcher's environment (an NCCL group of
+              one) against the plain trainer, 20 steps at the recipe's width,
+              the same losses and state bit for bit; then one
+              `torch.distributed.run` launch of this script's
+              --parallel-worker on 2 ranks sharing the card over gloo (on a
+              machine with more cards, one NCCL rank per card), each held
+              against the single process on the same card: the DP train step
+              at batch 256 from the committed weights, two steps (losses and
+              the first gradient within the larger of 1e-5 and PAR_FLOOR_FACTOR
+              times the float32 floor measured here: one process with the
+              batch's halves swapped; parameters within 2.5e-3; every rank's
+              state the same bits), scenes/s and the all-reduce's device
+              time (a profile of three steps); the sharded sampler at batch
+              4,096 on the committed VAE (boxes within 1e-5, at most 1 angle
+              bin flipped in 10,000 valid objects), layouts/s; the sharded
+              refine of 8 rooms at 96 px on the committed checkpoint (the
+              first 4 steps' losses and z within rtol 1e-3, all 60 reported,
+              both kernels launched on every rank, the launches added to the
+              kernel line); sharded colorize of one room x 50 z on
+              artifacts/spade_gan.ckpt (within 1e-3), imgs/s
+  12. times   active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
               8-room shapes and both kernels' at 256 px (CUDA events),
               beside each kernel's bound; each kernel's device time split
               between its launches (torch.profiler)
-  12. profile torch.profiler over three 8-room refine steps: device busy
+  13. profile torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
 Then one JSON line of kernel records, the refine, sampling, train, spade,
 spade_train and culling lines, one line per bf16 group (bf16_train,
-bf16_sampling, bf16_refine, bf16_shading), the draw3d line, the card's
-nvidia-smi line, and as the last
+bf16_sampling, bf16_refine, bf16_shading), the draw3d and parallel lines,
+the card's nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed phase raises, so the script
 exits non-zero and prints no result. All outputs go to a temporary directory
 that is removed at the end.
@@ -162,6 +185,7 @@ import pickle
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -173,6 +197,7 @@ from sln_tpu_torch.config import TrainConfig, default_config
 from sln_tpu_torch.data.vocab import NYU40_CLASSES
 from sln_tpu_torch.data.augment import build_graphs, draw_graph_randomness
 from sln_tpu_torch.models.vae import reparameterize
+from sln_tpu_torch.parallel.mesh import global_from_host_shards, make_mesh
 from sln_tpu_torch.render import assets, blender_bridge, image_io, preview
 from sln_tpu_torch.render import rasterizer as raster
 from sln_tpu_torch.render import rasterizer_cuda as rc
@@ -2160,6 +2185,440 @@ def draw3d_phase(tmp: str, device, smi: str, fine_tune_hist) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# the parallel phase: data parallelism over ranks (sln_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+PAR_TRAIN_ITERS = 20    # the one-rank NCCL trainer against the plain one
+PAR_BATCH = 256         # the DP train step's global batch (the recipe's)
+PAR_STEPS = 2           # DP train steps held against the single process
+PAR_ROOMS = 8           # the sharded refine: 8 rooms at 96 px
+PAR_GATED = 4           # its first 4 steps are gated, all ITERS reported
+PAR_LAYOUTS = 4096      # the sharded sampler's batch
+PAR_Z = 50              # sharded colorize: one room, 50 z
+# the gates (PERF.md §2): losses, the first step's gradient (relative
+# norm), parameters after Adam (tests/test_train.py:191-200's bound),
+# the refine against the single process (its card-against-CPU gate),
+# sampled boxes, angle bins flipped per valid object, shaded images
+PAR_GATES = {"loss_rtol": 1e-5, "grad_rel": 1e-5, "param_atol": 2.5e-3,
+             "refine_rtol": 1e-3, "boxes_atol": 1e-5,
+             "angle_flips_per_object": 1e-4, "image_atol": 1e-3}
+# At the recipe's width the step's losses and gradient move by more than
+# the 1e-5 gates when only the order of its sums changes: one process on
+# the same rows with the batch's halves swapped moved the first gradient by
+# 2.1e-2 (relative norm) and the losses by 9.9e-4 on an H100 (PERF.md §6).
+# The loss and gradient gates are the larger of their bound and this
+# factor times the floor measured in the same call
+PAR_FLOOR_FACTOR = 4.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def state_digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: replicas compared bit for
+    bit without moving them between processes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def collective_profile(fn, n: int = 3) -> dict:
+    """torch.profiler over n calls of fn: the NCCL kernels' device ms and
+    count per call (gloo reduces on the host: no device time), the
+    all-reduce calls per call, and the device's busy ms per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.key not in host_keys]
+    nccl = [e for e in dev if "nccl" in e.key.lower()]
+    calls = [e for e in events if e.device_type == DeviceType.CPU
+             and e.key == "c10d::allreduce_"]
+    return {"nccl_ms_per_step": sum(dev_us(e) for e in nccl) / 1e3 / n,
+            "nccl_kernels_per_step": sum(e.count for e in nccl) / n,
+            "allreduce_calls_per_step": sum(e.count for e in calls) / n,
+            "busy_ms_per_step": sum(dev_us(e) for e in dev) / 1e3 / n}
+
+
+def par_train(device, mesh=None, swap: bool = False) -> dict:
+    """PAR_STEPS train steps at the recipe's width on the first global
+    batch (this rank's rows of it under a mesh) from the committed
+    checkpoint's weights (fresh Adam), with the steps' own draws; then
+    scenes/s (CUDA events, best of two windows of 60 steps; 10 over gloo)
+    and a profile of three steps. swap: one process on the same rows and draws with the
+    batch's halves swapped, the float32 floor of the gates (the same sums
+    in another order)."""
+    cfg = train_cli.config_from_args(train_cli.parse_args(RECIPE))
+    arrays, size_info = common.load_arrays(4096, cfg, device,
+                                           synthetic_seed=42)
+    restored = train_ckpt.load_checkpoint(train_ckpt.latest_path(
+        CHECKPOINT.output_dir, CHECKPOINT.checkpoint_name))
+    rank, world = (mesh.rank, mesh.world_size) if mesh else (0, 1)
+    half = PAR_BATCH // 2
+    order = (np.r_[half:PAR_BATCH, :half] if swap else np.arange(PAR_BATCH))
+    rows = order[train_loop.shard_rows(PAR_BATCH, 0, rank, world)]
+    raw = train_loop.stage_arrays({k: v[rows] for k, v in arrays.items()},
+                                  device)
+    state = train_loop.create_state(cfg, device, restored)
+    step = train_loop.make_train_step(state, cfg, size_info, mesh=mesh)
+
+    def swapped_draws():
+        """The step's own draws (loop.py global_draws), rows reordered."""
+        gen = torch.Generator(device).manual_seed(
+            train_loop.step_seed(cfg.train.seed, state.step))
+        graph = draw_graph_randomness(PAR_BATCH, cfg.data.max_objects, gen,
+                                      device)
+        noise = torch.randn((PAR_BATCH, cfg.data.max_objects,
+                             cfg.model.latent_dim), generator=gen,
+                            device=device)
+        idx = torch.as_tensor(order, device=device)
+        return [(type(graph)(*(d[idx] for d in graph)), noise[idx])]
+
+    losses, grads = [], None
+    for _ in range(PAR_STEPS):
+        out = step(raw, swapped_draws() if swap else None)
+        losses.append({k: float(v) for k, v in out.items()})
+        if grads is None:
+            grads = torch.cat([p.grad.reshape(-1)
+                               for p in state.model.parameters()]).cpu()
+    params = torch.cat([p.detach().reshape(-1)
+                        for p in state.model.parameters()]).cpu()
+    out = {"losses": losses, "grads": grads, "params": params,
+           "digest": state_digest(state.state_tensors())}
+    if not swap:
+        # ranks sharing a card over gloo take ~0.4 s a step (PERF.md §6):
+        # shorter windows there
+        reps = 10 if mesh is not None and mesh.backend == "gloo" else 60
+        windows = [event_ms(lambda: step(raw), reps, 0) for _ in range(2)]
+        out.update(step_ms=windows,
+                   scenes_per_s=PAR_BATCH / (min(windows) / 1e3),
+                   profile=collective_profile(lambda: step(raw), 3))
+    return out
+
+
+def train_deviation(a: dict, b: dict) -> tuple:
+    """(losses' max relative difference over the steps, the first
+    gradient's relative norm, the parameters' max abs difference) of run a
+    against run b."""
+    loss = max(abs(x[k] - y[k]) / abs(y[k])
+               for x, y in zip(a["losses"], b["losses"]) for k in y if y[k])
+    return (loss, rel(a["grads"], b["grads"]),
+            float((a["params"] - b["params"]).abs().max()))
+
+
+def par_sampler(device, mesh=None) -> dict:
+    """The committed VAE's sampler at batch PAR_LAYOUTS on the JAX
+    package's posterior, eps from seed 0; layouts/s by CUDA events."""
+    cfg = default_config().replace(train=CHECKPOINT)
+    model = common.restore_model(cfg, device)
+    with open(JAX_POSTERIOR, "rb") as f:
+        mean, cov = (np.asarray(x) for x in pickle.load(f))
+    batch = heatmap.heatmap_scene_batch(PAR_LAYOUTS, 8, 24, device=device)
+    sample = heatmap.make_sampler(model, batch, mean, cov, mesh=mesh)
+    eps = torch.randn((PAR_LAYOUTS, 8, len(mean)), device=device,
+                      generator=torch.Generator(device).manual_seed(0))
+    boxes, angles = sample(eps)
+    ms = event_ms(lambda: sample(eps), 20, 2)
+    return {"boxes": boxes.cpu(), "angles": angles.cpu(),
+            "mask": batch.obj_mask.cpu(), "ms": ms,
+            "layouts_per_s": PAR_LAYOUTS / (ms / 1e3)}
+
+
+def par_refine(device, mesh=None) -> dict:
+    """The batched refine (PAR_ROOMS synthetic rooms, seed 3, at 96 px) on
+    artifacts/latest_bench_with_model.ckpt for ITERS steps (this rank's
+    rooms under a mesh): the losses, z after PAR_GATED steps, both
+    kernels' launches and ms per step (CUDA events)."""
+    cfg = default_config().replace(train=CHECKPOINT)
+    rcfg = refine.refine_render_config(cfg)
+    bank_host = assets.build_procedural_bank(cfg.render.mesh_subdiv)
+    bank = scene_lib.device_bank(bank_host, cfg.render.shell_subdiv,
+                                 device=device)
+    batch = batch_of_rooms(cfg, PAR_ROOMS, 3, device)
+    inputs = refine.prepare_refine_inputs(batch, bank_host, bank, rcfg)
+    model = common.restore_model(cfg, device)
+    with torch.no_grad():
+        mu, logvar = model.encode(batch)
+        z0 = reparameterize(mu, logvar,
+                            torch.Generator(device).manual_seed(13))
+    args = (batch, *inputs, z0, model)
+    if mesh is not None:
+        args = refine.shard_refine_inputs(mesh, *args)
+    b, midx, target, size_t, room_row, z0, model = args
+    rc.reset_launch_counts()
+    refiner = refine.make_refine_step(model, b, midx, bank, target, size_t,
+                                      room_row, cfg, z0, mesh=mesh)
+    first = refiner.run(PAR_GATED)
+    z = refiner.z.detach()
+    if mesh is not None:
+        z = global_from_host_shards(z, mesh)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rest = refiner.run(ITERS - PAR_GATED)
+    end.record()
+    torch.cuda.synchronize()
+    return {"total": torch.cat([first["total"], rest["total"]]).cpu(),
+            "z": z.cpu(), "launches": (rc.FWD_LAUNCHES, rc.BWD_LAUNCHES),
+            "ms_per_step": start.elapsed_time(end) / (ITERS - PAR_GATED)}
+
+
+def par_colorize(device, mesh=None) -> dict:
+    """One held-out room (seed 19, graph key 100) shaded with PAR_Z z by
+    the committed generator; imgs/s by the host clock over 3 rooms (each
+    colorize ends in a copy to the host)."""
+    cfg = default_config()
+    model = gan_shade.make_spade_model(cfg, SPADE_CHECKPOINT, device)
+    seg = gan_shade.render_spade_inputs(1, cfg, model.crop_size,
+                                        synthetic_seed=19, key_offset=100,
+                                        device=device)[0]
+    zs = gan_shade.draw_zs(PAR_Z, model.nz, device=device)
+    imgs = gan_shade.colorize(model, seg, zs, PAR_Z, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        gan_shade.colorize(model, seg, zs, PAR_Z, mesh=mesh)
+    s = (time.perf_counter() - t0) / 3
+    return {"imgs": imgs, "s_per_room": s, "imgs_per_s": PAR_Z / s}
+
+
+def parallel_worker(out_dir: str) -> None:
+    """One rank of the parallel phase (under torch.distributed.run): the
+    DP train step, the sharded sampler, refine and colorize; its results
+    to out_dir/rank<r>.pt."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device="cuda")
+    try:
+        kernels.load()
+        out = {"rank": mesh.rank, "world": mesh.world_size,
+               "backend": mesh.backend, "device": str(mesh.device),
+               "train": par_train(mesh.device, mesh),
+               "sampler": par_sampler(mesh.device, mesh),
+               "refine": par_refine(mesh.device, mesh),
+               "colorize": par_colorize(mesh.device, mesh)}
+        torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    finally:
+        mesh.close()
+
+
+def one_rank_trainer(tmp: str, device) -> dict:
+    """`python -m sln_tpu_torch.train --num_data_shards 1` under a launcher's
+    environment of one rank (an NCCL process group of one), against the
+    plain trainer: the same loss history and state, bit for bit."""
+    runs = {}
+    for name in ("nccl", "plain"):
+        out_dir = os.path.join(tmp, f"par_{name}")
+        argv = [*RECIPE, "--num_iterations", str(PAR_TRAIN_ITERS),
+                "--print_every", "1", "--checkpoint_every",
+                str(PAR_TRAIN_ITERS), "--output_dir", out_dir,
+                "--checkpoint_name", "smoke", "--device", device.type]
+        launcher = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                    "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                    "MASTER_PORT": str(free_port())}
+        if name == "nccl":
+            argv += ["--num_data_shards", "1"]
+            os.environ.update(launcher)
+        try:
+            (state, ckpt), log = _captured(lambda: train_cli.main(argv))
+        finally:
+            for k in launcher:
+                os.environ.pop(k, None)
+        runs[name] = (ckpt["losses"], state_digest(state.state_tensors()),
+                      log)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if f"backend {backend}" not in runs["nccl"][2]:
+        raise AssertionError(f"the one-rank trainer ran without a {backend}"
+                             " process group")
+    same = (runs["nccl"][0] == runs["plain"][0],
+            runs["nccl"][1] == runs["plain"][1])
+    print(f"  --num_data_shards 1 over NCCL against the plain trainer, "
+          f"{PAR_TRAIN_ITERS} steps at the recipe's width: loss histories "
+          f"{'equal' if same[0] else 'DIFFER'}, parameters, Adam and "
+          f"BatchNorm state {'equal' if same[1] else 'DIFFER'}", flush=True)
+    if not all(same):
+        raise AssertionError("a one-rank NCCL world is not the plain "
+                             "trainer, bit for bit")
+    return {"steps": PAR_TRAIN_ITERS, "bitwise_equal": True,
+            "total_loss": runs["nccl"][0]["total_loss"][-1]}
+
+
+def parallel_phase(tmp: str, device, smi: str) -> dict:
+    """The parallel phase: returns its numbers and the ranks' rasterizer
+    launches (fwd, bwd) on the sharded refine."""
+    with phase("parallel"):
+        cards = torch.cuda.device_count()
+        world = cards if cards > 1 else 2
+        result = {"one_rank_nccl_trainer": one_rank_trainer(tmp, device)}
+
+        t0 = time.perf_counter()
+        ref = {"train": par_train(device), "sampler": par_sampler(device),
+               "refine": par_refine(device), "colorize": par_colorize(device)}
+        floor = train_deviation(par_train(device, swap=True), ref["train"])
+        torch.cuda.empty_cache()
+        print(f"  single-process references in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        out_dir = os.path.join(tmp, "parallel")
+        os.makedirs(out_dir)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(world), os.path.abspath(__file__),
+               "--parallel-worker", out_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        launch_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if line.startswith("| data parallel"):
+                print(f"  {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{world} ranks exited {proc.returncode}:"
+                                 f"\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-6000:]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        backend = ranks[0]["backend"]
+        print(f"  {world} ranks ({backend}; devices "
+              f"{[r['device'] for r in ranks]}) in {launch_s:.1f} s",
+              flush=True)
+        g = PAR_GATES
+
+        # the DP train step
+        tr, rt = ranks[0]["train"], ref["train"]
+        loss_err, grad_rel, param_err = train_deviation(tr, rt)
+        loss_gate = max(g["loss_rtol"], PAR_FLOOR_FACTOR * floor[0])
+        grad_gate = max(g["grad_rel"], PAR_FLOOR_FACTOR * floor[1])
+        digests = {r["train"]["digest"] for r in ranks}
+        print(f"  DP train step, batch {PAR_BATCH} ({PAR_BATCH // world} "
+              f"rows a rank), {PAR_STEPS} steps from the committed weights "
+              f"against one process: losses max rel {loss_err:.3e} (gate "
+              f"{loss_gate:.3e}), first gradient rel norm {grad_rel:.3e} "
+              f"(gate {grad_gate:.3e}), parameters max abs {param_err:.3e} "
+              f"(gate {g['param_atol']}); the float32 floor (one process, "
+              f"the halves swapped): losses {floor[0]:.3e}, gradient "
+              f"{floor[1]:.3e}, parameters {floor[2]:.3e}; {world} replicas'"
+              f" state {'bitwise equal' if len(digests) == 1 else 'DIFFER'}",
+              flush=True)
+        if (loss_err > loss_gate or grad_rel > grad_gate
+                or param_err > g["param_atol"] or len(digests) != 1):
+            raise AssertionError("the DP train step misses its gates")
+        prof = tr["profile"]
+        print(f"  train scenes/s at batch {PAR_BATCH}: 1 process "
+              f"{rt['scenes_per_s']:.0f} ({rt['step_ms'][0]:.3f}, "
+              f"{rt['step_ms'][1]:.3f} ms), {world} ranks "
+              f"{tr['scenes_per_s']:.0f} ({tr['step_ms'][0]:.3f}, "
+              f"{tr['step_ms'][1]:.3f} ms); all-reduce per step "
+              f"{prof['nccl_ms_per_step']:.3f} ms on the device (each NCCL "
+              f"kernel's time includes its wait for the other ranks) in "
+              f"{prof['nccl_kernels_per_step']:.0f} NCCL kernels "
+              f"({prof['allreduce_calls_per_step']:.0f} all-reduce calls), "
+              f"device busy {prof['busy_ms_per_step']:.3f} ms per step "
+              f"(profile of 3 steps), on {smi}", flush=True)
+
+        # the sharded sampler
+        sp, rs = ranks[0]["sampler"], ref["sampler"]
+        m = rs["mask"]
+        box_err = float((sp["boxes"] - rs["boxes"]).abs().max())
+        flips = int((sp["angles"] != rs["angles"])[m].sum())
+        n_obj = int(m.sum())
+        same_ranks = all(torch.equal(r["sampler"]["boxes"], sp["boxes"])
+                         for r in ranks)
+        print(f"  sharded sampler, {PAR_LAYOUTS} layouts: boxes max abs "
+              f"{box_err:.3e} (gate {g['boxes_atol']}), angle bins flipped "
+              f"{flips} of {n_obj} valid objects; every rank the same "
+              f"layouts: {same_ranks}; {rs['layouts_per_s']:.0f} layouts/s "
+              f"on 1 process, {sp['layouts_per_s']:.0f} on {world} ranks",
+              flush=True)
+        if (box_err > g["boxes_atol"] or not same_ranks
+                or flips > g["angle_flips_per_object"] * n_obj):
+            raise AssertionError("the sharded sampler misses its gates")
+
+        # the sharded refine
+        rf, rr = ranks[0]["refine"], ref["refine"]
+        hist_ok = np.allclose(rf["total"][:PAR_GATED], rr["total"][:PAR_GATED],
+                              rtol=g["refine_rtol"], atol=0)
+        # z relative to its largest entry: an elementwise rtol means
+        # nothing for entries near 0
+        z_err = float((rf["z"] - rr["z"]).abs().max())
+        z_ok = z_err <= g["refine_rtol"] * float(rr["z"].abs().max())
+        launches = [r["refine"]["launches"] for r in ranks]
+        print(f"  sharded refine, {PAR_ROOMS} rooms at 96 px "
+              f"({PAR_ROOMS // world} a rank): first {PAR_GATED} losses "
+              f"{rf['total'][:PAR_GATED].tolist()} vs "
+              f"{rr['total'][:PAR_GATED].tolist()}, z max abs {z_err:.3e} "
+              f"of max |z| {float(rr['z'].abs().max()):.3f} (gates rtol "
+              f"{g['refine_rtol']}); all {ITERS}: "
+              f"{float(rf['total'][-1]):.6f} vs {float(rr['total'][-1]):.6f}"
+              f" (not gated: the loss is discontinuous); launches per rank "
+              f"(fwd, bwd) {launches}; {rf['ms_per_step']:.3f} ms/step on "
+              f"{world} ranks, {rr['ms_per_step']:.3f} on 1 process",
+              flush=True)
+        if not (hist_ok and z_ok) or not all(f > 0 and b > 0
+                                             for f, b in launches):
+            raise AssertionError("the sharded refine misses its gates")
+
+        # sharded colorize
+        co, rcol = ranks[0]["colorize"], ref["colorize"]
+        img_err = float(np.abs(co["imgs"] - rcol["imgs"]).max())
+        print(f"  sharded colorize, 1 room x {PAR_Z} z: images max abs "
+              f"{img_err:.3e} (gate {g['image_atol']}); "
+              f"{rcol['imgs_per_s']:.1f} imgs/s on 1 process, "
+              f"{co['imgs_per_s']:.1f} on {world} ranks", flush=True)
+        if co["imgs"].shape != rcol["imgs"].shape or img_err > g["image_atol"]:
+            raise AssertionError("sharded colorize misses its gate")
+
+        result.update({
+            "world": world, "backend": backend, "launch_s": launch_s,
+            "train": {"loss_max_rel": loss_err, "grad_rel_norm": grad_rel,
+                      "param_max_abs": param_err,
+                      "floor": {"loss_max_rel": floor[0],
+                                "grad_rel_norm": floor[1],
+                                "param_max_abs": floor[2]},
+                      "gates": {"loss": loss_gate, "grad": grad_gate},
+                      "scenes_per_s": {"1": rt["scenes_per_s"],
+                                       str(world): tr["scenes_per_s"]},
+                      "step_ms": {"1": rt["step_ms"],
+                                  str(world): tr["step_ms"]},
+                      "profile": {"1": rt["profile"], str(world): prof}},
+            "sampler": {"boxes_max_abs": box_err, "angle_flips": flips,
+                        "valid_objects": n_obj,
+                        "layouts_per_s": {"1": rs["layouts_per_s"],
+                                          str(world): sp["layouts_per_s"]}},
+            "refine": {"first_losses": rf["total"][:PAR_GATED].tolist(),
+                       "z_max_abs": z_err,
+                       "last_loss": {"1": float(rr["total"][-1]),
+                                     str(world): float(rf["total"][-1])},
+                       "launches_per_rank": launches,
+                       "ms_per_step": {"1": rr["ms_per_step"],
+                                       str(world): rf["ms_per_step"]}},
+            "colorize": {"max_abs": img_err,
+                         "imgs_per_s": {"1": rcol["imgs_per_s"],
+                                        str(world): co["imgs_per_s"]}},
+            "gates": g, "card": smi})
+    fwd = sum(f for f, _ in launches)
+    bwd = sum(b for _, b in launches)
+    return result, (fwd, bwd)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2170,16 +2629,32 @@ def main() -> None:
     ap.add_argument("--spade-recipe", action="store_true",
                     help="also train the committed shading generator's "
                          "whole recipe (4 chained runs of 750 steps)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run the device, build and parallel phases")
+    ap.add_argument("--parallel-worker", metavar="DIR",
+                    help="one rank of the parallel phase (the phase starts "
+                         "the ranks with torch.distributed.run)")
     args = ap.parse_args()
+    if args.parallel_worker:
+        parallel_worker(args.parallel_worker)
+        return
     tmp = tempfile.mkdtemp(prefix="sln_chip_smoke_")
     try:
-        run(tmp, args.kernels_only, args.train_recipe, args.spade_recipe)
+        run(tmp, args.kernels_only, args.train_recipe, args.spade_recipe,
+            args.parallel_only)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def print_ok() -> None:
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
-        spade_recipe: bool = False) -> None:
+        spade_recipe: bool = False, parallel_only: bool = False) -> None:
     with phase("device"):
         if not torch.cuda.is_available():
             raise RuntimeError("torch.cuda.is_available() is False: "
@@ -2211,6 +2686,12 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
                   f"{info['blocks_per_sm'] * info['threads'] // 32}")
             counts_ = sass_loop_counts(kernels.library_path(), kernel)
             print(f"  {name} inner loop (SASS): {json.dumps(counts_)}")
+
+    if parallel_only:
+        parallel, _ = parallel_phase(tmp, device, smi)
+        print(json.dumps({"parallel": parallel}))
+        print_ok()
+        return
 
     cfg = default_config().replace(train=CHECKPOINT)
     rcfg96 = refine.refine_render_config(cfg)
@@ -2422,6 +2903,9 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     launches["fwd"] += (drawing["fwd_launches"]
                         + drawing["fine_tune_launches"][0])
     launches["bwd"] += drawing["fine_tune_launches"][1]
+    parallel, (par_fwd, par_bwd) = parallel_phase(tmp, device, smi)
+    launches["fwd"] += par_fwd
+    launches["bwd"] += par_bwd
 
     fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
@@ -2453,10 +2937,8 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     for group, numbers in bf16.items():
         print(json.dumps({f"bf16_{group}": numbers}))
     print(json.dumps({"draw3d": drawing}))
-    print(smi_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps({"parallel": parallel}))
+    print_ok()
 
 
 if __name__ == "__main__":

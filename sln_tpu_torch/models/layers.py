@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sln_tpu_torch.parallel.mesh import all_reduce_sum_grad
+
 
 @contextlib.contextmanager
 def fp32_accumulation():
@@ -54,7 +56,15 @@ class MaskedBatchNorm(nn.Module):
     variance to normalize, unbiased variance for the running update.
     Eval mode normalizes with the running statistics. Statistics, running
     buffers and the normalisation are float32 whatever x's dtype; the
-    output takes x's dtype (the JAX module's layers.py:70)."""
+    output takes x's dtype (the JAX module's layers.py:70).
+
+    `mesh` (set_mesh), when it has a process group: train mode takes the
+    statistics over the valid rows of every rank, as the JAX module does
+    over a sharded batch (the sums and the count all-reduced through
+    autograd, so the backward sees the global statistics too), and the
+    running buffers update from them, the same on every rank."""
+
+    mesh = None
 
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -72,11 +82,17 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             # float32 statistics whatever x's dtype, as the JAX module
             m = mask.to(torch.float32)[:, None]
-            n = m.sum().clamp(min=1.0)
             xf = x.float()
             # one pass sum / sum of squares, as the JAX module
-            mean = (xf * m).sum(0) / n
-            var = ((xf * xf * m).sum(0) / n - mean * mean).clamp(min=0.0)
+            s, ss, n = (xf * m).sum(0), (xf * xf * m).sum(0), m.sum()
+            if self.mesh is not None and self.mesh.distributed:
+                F_ = s.shape[0]
+                sums = all_reduce_sum_grad(torch.cat([s, ss, n[None]]),
+                                           self.mesh)
+                s, ss, n = sums[:F_], sums[F_:2 * F_], sums[-1]
+            n = n.clamp(min=1.0)
+            mean = s / n
+            var = (ss / n - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 unbiased = var * n / (n - 1.0).clamp(min=1.0)
                 self.running_mean.lerp_(mean, self.momentum)
@@ -88,6 +104,14 @@ class MaskedBatchNorm(nn.Module):
         # x's dtype
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+def set_mesh(model: nn.Module, mesh) -> None:
+    """Every MaskedBatchNorm of `model` takes its train-mode statistics
+    over `mesh` (None: over this process's rows only)."""
+    for module in model.modules():
+        if isinstance(module, MaskedBatchNorm):
+            module.mesh = mesh
 
 
 class OneHotEmbedding(nn.Embedding):

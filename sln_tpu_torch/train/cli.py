@@ -7,7 +7,11 @@ takes the reference's flags (options/options.py) and the JAX package's
 additions (`--synthetic N` trains on procedurally generated rooms), and
 runs on the card unless --device cpu is given. It writes the checkpoint
 trio and metrics.jsonl to --output_dir; `python -m sln_tpu_torch.test`
-restores the latest checkpoint from there.
+restores the latest checkpoint from there. Data-parallel over N ranks
+(one process each; NCCL on N cards, gloo on the CPU):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m sln_tpu_torch.train --num_data_shards N ...
 """
 
 from __future__ import annotations
@@ -18,10 +22,10 @@ import time
 
 import numpy as np
 
-from sln_tpu_torch import resolve_device
 from sln_tpu_torch.config import (Config, DataConfig, ModelConfig,
                                   TrainConfig, default_config)
 from sln_tpu_torch.data.vocab import VOCAB
+from sln_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate
 from sln_tpu_torch.test import (add_reference_compat_flags,
                                 apply_reference_compat_flags, bool_flag)
 from sln_tpu_torch.train import checkpoint as ckpt_lib
@@ -72,7 +76,10 @@ def parse_args(argv=None):
                         "BatchNorm statistics, Adam and the losses stay "
                         "float32)")
     p.add_argument("--num_data_shards", default=None, type=int,
-                   help="only 1 is ported (ROADMAP item 9)")
+                   help="data-parallel ranks; must equal the launcher's "
+                        "world size (python -m torch.distributed.run "
+                        "--nproc_per_node N -m sln_tpu_torch.train ...); "
+                        "default: the launcher's world size, else 1")
     p.add_argument("--microbatch", default=0, type=int,
                    help="gradient-accumulation chunk size (0 = off)")
     p.add_argument("--stage_on_device", default=True, type=bool_flag,
@@ -87,10 +94,6 @@ def parse_args(argv=None):
 
 
 def config_from_args(args) -> Config:
-    if args.num_data_shards not in (None, 1):
-        raise NotImplementedError(
-            "--num_data_shards > 1 is not ported: training runs on one "
-            "device (ROADMAP item 9)")
     return default_config().replace(
         model=ModelConfig(
             embedding_dim=args.embedding_dim,
@@ -120,27 +123,48 @@ def config_from_args(args) -> Config:
         test_dir=args.test_dir)
 
 
+def _quiet(*args, **kwargs) -> None:
+    pass
+
+
 def main(argv=None):
     """Train; returns (the TrainState, the checkpoint dict with its loss
-    history)."""
+    history).
+
+    Under a launcher (python -m torch.distributed.run) each rank trains
+    its rows of every global batch (parallel.mesh): every rank stages the
+    whole dataset on its card and restores the same checkpoint, and rank 0
+    alone prints, writes metrics.jsonl and the checkpoint trio."""
     args = parse_args(argv)
     cfg = config_from_args(args)
+    mesh = make_mesh(args.num_data_shards, args.device)
+    try:
+        return _train(args, cfg, mesh)
+    finally:
+        mesh.close()
+
+
+def _train(args, cfg: Config, mesh: Mesh):
     tc = cfg.train
-    device = resolve_device(args.device)
-    print("| options")
+    device = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else _quiet
+    rows = loop.shard_rows(tc.batch_size, tc.microbatch, mesh.rank,
+                           mesh.world_size)
+    say("| options")
     for k, v in sorted(vars(args).items()):
-        print(f"{k}: {v}")
+        say(f"{k}: {v}")
 
     if args.synthetic:
-        print(f"| generating {args.synthetic} synthetic rooms")
+        say(f"| generating {args.synthetic} synthetic rooms")
     else:
-        print(f"| loading {cfg.data.train_path}")
+        say(f"| loading {cfg.data.train_path}")
     arrays, size_info = common.load_arrays(
         args.synthetic or cfg.data.train_path, cfg, device,
         synthetic_seed=tc.seed)
     n_rooms = arrays["objs"].shape[0]
     n_objects = int(arrays["obj_mask"].sum()) - n_rooms
-    print(f"Training dataset has {n_rooms} scenes and {n_objects} objects")
+    say(f"Training dataset has {n_rooms} scenes and {n_objects} objects")
 
     ckpt = ckpt_lib.new_checkpoint({k: str(v) for k, v in vars(args).items()},
                                    VOCAB.to_dict())
@@ -149,27 +173,30 @@ def main(argv=None):
         restored = ckpt_lib.load_checkpoint(
             ckpt_lib.latest_path(tc.output_dir, tc.checkpoint_name))
     state = loop.create_state(cfg, device, restored)
+    # the replicas start from rank 0's bits
+    replicate(state.state_tensors(), mesh)
     t, epoch = 0, 0
     if restored is not None:
-        print("Restoring from checkpoint")
+        say("Restoring from checkpoint")
         ckpt = restored
         t, epoch = restored["counters"]["t"], restored["counters"]["epoch"]
 
-    step_fn = loop.make_train_step(state, cfg, size_info)
+    step_fn = loop.make_train_step(state, cfg, size_info, mesh=mesh)
     eval_step_fn = None
     if args.eval_mode_after >= 0:
         eval_step_fn = loop.make_train_step(state, cfg, size_info,
-                                            eval_mode=True)
-    print("| staging dataset on the device (per-step copy: the batch "
-          "indices)")
+                                            eval_mode=True, mesh=mesh)
+    say("| staging dataset on the device (per-step copy: the batch "
+        "indices)")
     staged = loop.stage_arrays(arrays, device)
     rng_np = np.random.default_rng(tc.seed + 1)
-    metrics = MetricsLogger(os.path.join(tc.output_dir, "metrics.jsonl"))
+    metrics = MetricsLogger(os.path.join(tc.output_dir, "metrics.jsonl")
+                            if lead else None)
     try:
         t0 = time.time()
         while t < tc.num_iterations:
             epoch += 1
-            print(f"Starting epoch {epoch}")
+            say(f"Starting epoch {epoch}")
             for idx in loop.batch_indices(n_rooms, tc.batch_size, rng_np):
                 if t >= tc.num_iterations:
                     break
@@ -179,10 +206,11 @@ def main(argv=None):
                 active = step_fn
                 if eval_step_fn is not None and t >= args.eval_mode_after:
                     active = eval_step_fn
-                losses = active(loop.gather_batch(staged, idx))
+                losses = active(loop.gather_batch(staged, idx[rows]))
 
-                if t % tc.print_every == 0:
+                if t % tc.print_every == 0 and lead:
                     losses = {k: float(v) for k, v in losses.items()}
+                    # the global batch's scenes
                     rate = tc.print_every * tc.batch_size / max(
                         time.time() - t0, 1e-9)
                     t0 = time.time()
@@ -193,7 +221,7 @@ def main(argv=None):
                     ckpt_lib.record_losses(ckpt, t, losses)
                     metrics.log(t, scenes_per_sec=rate, **losses)
 
-                if t % tc.checkpoint_every == 0:
+                if t % tc.checkpoint_every == 0 and lead:
                     path = ckpt_lib.save_checkpoint(
                         ckpt, tc.output_dir, tc.checkpoint_name, t, epoch,
                         ckpt_lib.model_state_of(state.model, cfg.model),
@@ -203,5 +231,5 @@ def main(argv=None):
                     print("Saving checkpoint to", path)
     finally:
         metrics.close()
-    print("done")
+    say("done")
     return state, ckpt

@@ -25,8 +25,10 @@ import torch
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import (GraphDraws, SizeInfo, build_graphs,
                                         draw_graph_randomness)
-from sln_tpu_torch.models.layers import fp32_accumulation
+from sln_tpu_torch.models.layers import fp32_accumulation, set_mesh
 from sln_tpu_torch.models.vae import Sg2ScVAE, params_from_jax
+from sln_tpu_torch.parallel.mesh import (Mesh, all_reduce_flat,
+                                         all_reduce_sum)
 from sln_tpu_torch.train import checkpoint as ckpt_lib
 from sln_tpu_torch.train.losses import vae_losses
 
@@ -136,7 +138,7 @@ def create_state(cfg: Config, device, restored: Optional[Dict] = None
 
 
 def make_train_step(state: TrainState, cfg: Config, size_info: SizeInfo,
-                    eval_mode: bool = False
+                    eval_mode: bool = False, mesh: Optional[Mesh] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """The step: step_fn(raw, draws=None) -> loss dict of 0-dim tensors on
     the device (no value is read back to the host).
@@ -155,60 +157,95 @@ def make_train_step(state: TrainState, cfg: Config, size_info: SizeInfo,
 
     A step whose total loss is not finite leaves the parameters, the Adam
     state and the BatchNorm buffers as they were, still counts as a step,
-    and reports skipped_nan = 1."""
+    and reports skipped_nan = 1.
+
+    Under a `mesh` with a process group, `raw` is this rank's rows of the
+    global batch (shard_rows: its share of each global chunk) and the step
+    computes the global batch's step: each chunk's draws are the global
+    chunk's (from the same seed; this rank keeps its rows; `draws` too are
+    the global chunks'), BatchNorm's statistics and every loss normalizer
+    are global, each rank backpropagates total / world_size, and the
+    gradients are summed over the ranks before Adam, so every replica takes
+    the same update and decides the NaN guard on the same global loss."""
     tc, dc = cfg.train, cfg.data
     model, optimizer = state.model, state.optimizer
     params = list(model.parameters())
+    sharded = mesh is not None and mesh.distributed
+    world = mesh.world_size if sharded else 1
+    set_mesh(model, mesh if sharded else None)
 
-    def chunk_grads(chunk: RawBatch, kl_w: float, draws: Optional[ChunkDraws],
-                    seed: int):
+    def global_draws(n: int, O: int, device, seed: int) -> ChunkDraws:
+        """A global chunk of n rows' draws from the step's generator: the
+        graph randomness, then the z noise, as the model would draw it."""
         gen = state.generator
+        gen.manual_seed(seed)
+        graph_draws = draw_graph_randomness(n, O, gen, device)
         noise = None
-        if draws is None:
-            gen.manual_seed(seed)
-            graph_draws = draw_graph_randomness(*chunk.objs.shape, gen,
-                                                chunk.objs.device)
-        else:
-            graph_draws, noise = draws
-            noise = noise.to(chunk.boxes.device)
+        if not cfg.model.use_ae:
+            noise = torch.randn((n, O, cfg.model.latent_dim), generator=gen,
+                                device=device)
+        return graph_draws, noise
+
+    def chunk_grads(chunk: RawBatch, kl_w: float, draws: ChunkDraws,
+                    rows: slice, weigh: bool):
+        device = chunk.boxes.device
+        graph_draws, noise = draws
+        graph_draws = GraphDraws(*(d[rows].to(device) for d in graph_draws))
+        if noise is not None:
+            noise = noise[rows].to(device)
         batch = build_graphs(*chunk, size_info, max_on_rels=dc.max_on_rels,
                              use_attr_30=dc.use_attr_30, draws=graph_draws)
         with fp32_accumulation():
-            mu, logvar, boxes_pred, angle_lp = model(
-                batch, generator=gen if noise is None else None,
-                noise=noise)
+            mu, logvar, boxes_pred, angle_lp = model(batch, noise=noise)
             total, losses = vae_losses(batch, mu, logvar, boxes_pred,
                                        angle_lp, kl_w, cfg.model.use_ae,
-                                       tc.kl_free_bits)
-            grads = torch.autograd.grad(total, params, allow_unused=True,
+                                       tc.kl_free_bits, mesh)
+            grads = torch.autograd.grad(total / world if sharded else total,
+                                        params, allow_unused=True,
                                         materialize_grads=True)
-        n_valid = batch.obj_mask.to(torch.float32).sum().clamp(min=1.0)
+        n_valid = None
+        if weigh:
+            n_valid = batch.obj_mask.to(torch.float32).sum()
+            if sharded:
+                n_valid = all_reduce_sum(n_valid, mesh)
+            n_valid = n_valid.clamp(min=1.0)
         return list(grads), total, losses, n_valid
 
     def step_fn(raw: RawBatch, draws: Optional[Sequence[ChunkDraws]] = None
                 ) -> Dict[str, torch.Tensor]:
-        B = raw.objs.shape[0]
+        B = raw.objs.shape[0] * world
         mb = tc.microbatch if 0 < tc.microbatch < B else B
         if B % mb:
             raise ValueError(f"batch size {B} is not divisible by "
                              f"train.microbatch {mb}")
-        k = B // mb
+        if mb % world:
+            raise ValueError(f"train.microbatch {mb} does not split over "
+                             f"{world} ranks")
+        k, mbl = B // mb, mb // world
+        rows = mesh.rows(mb) if sharded else slice(0, mb)
         if draws is not None and len(draws) != k:
             raise ValueError(f"{len(draws)} draws for {k} chunks")
         kl_w = kl_weight_at(state.step + 1, tc)
         model.train(not eval_mode)
         state.rollback.save()
 
+        def draws_of(i):
+            if draws is not None:
+                return draws[i]
+            return global_draws(mb, raw.objs.shape[1], raw.objs.device,
+                                step_seed(tc.seed, state.step) if k == 1
+                                else step_seed(tc.seed, state.step, i))
+
         if k == 1:
-            grads, total, losses, _ = chunk_grads(
-                raw, kl_w, None if draws is None else draws[0],
-                step_seed(tc.seed, state.step))
+            grads, total, losses, _ = chunk_grads(raw, kl_w, draws_of(0),
+                                                  rows, False)
+            if sharded:
+                grads = all_reduce_flat(grads, mesh)
         else:
             for i in range(k):
-                chunk = RawBatch(*(a[i * mb:(i + 1) * mb] for a in raw))
-                g, t, ls, n = chunk_grads(
-                    chunk, kl_w, None if draws is None else draws[i],
-                    step_seed(tc.seed, state.step, i))
+                chunk = RawBatch(*(a[i * mbl:(i + 1) * mbl] for a in raw))
+                g, t, ls, n = chunk_grads(chunk, kl_w, draws_of(i), rows,
+                                          True)
                 g = torch._foreach_mul(g, n)
                 ls = {name: n * v for name, v in ls.items()}
                 if i == 0:
@@ -219,6 +256,8 @@ def make_train_step(state: TrainState, cfg: Config, size_info: SizeInfo,
                     losses = {name: losses[name] + v
                               for name, v in ls.items()}
                     n_total = n_total + n
+            if sharded:
+                grads = all_reduce_flat(grads, mesh)
             torch._foreach_div_(grads, n_total)
             total = total / n_total
             losses = {name: v / n_total for name, v in losses.items()}
@@ -247,6 +286,39 @@ def batch_indices(n: int, batch_size: int, rng: np.random.Generator
             [order, order[: batch_size - n % batch_size]])
     for start in range(0, len(order), batch_size):
         yield order[start: start + batch_size].astype(np.int32)
+
+
+def shard_rows(global_batch: int, microbatch: int, rank: int, world: int
+               ) -> np.ndarray:
+    """The rows of a global batch that rank `rank` of `world` takes, in the
+    order its step reads them: its share of each global microbatch chunk,
+    rows [i mb + r mb/N, i mb + (r+1) mb/N) of chunk i (one chunk of the
+    whole batch when microbatch is 0 or >= the batch)."""
+    mb = microbatch if 0 < microbatch < global_batch else global_batch
+    if global_batch % mb or mb % world:
+        raise ValueError(f"global batch {global_batch} in chunks of {mb} "
+                         f"does not split over {world} ranks")
+    per = mb // world
+    return np.concatenate([np.arange(i * mb + rank * per,
+                                     i * mb + (rank + 1) * per)
+                           for i in range(global_batch // mb)])
+
+
+def host_sharded_batches(arrays: Dict[str, np.ndarray],
+                         global_batch_size: int, rng: np.random.Generator,
+                         process_index: int, process_count: int,
+                         microbatch: int = 0) -> Iterator[RawBatch]:
+    """This rank's rows (shard_rows) of each batch of the global epoch
+    stream (counterpart of the JAX package's loop.py:305). Every rank
+    seeds the same rng, so draws the same global permutation, and keeps
+    its own rows: without microbatching the ranks' batches concatenate in
+    rank order to batches_from_arrays' stream. The trainer gathers the
+    same rows on the device instead (batch_indices, then gather_batch)."""
+    rows = shard_rows(global_batch_size, microbatch, process_index,
+                      process_count)
+    for idx in batch_indices(arrays["objs"].shape[0], global_batch_size,
+                             rng):
+        yield RawBatch(*(arrays[k][idx[rows]] for k in RawBatch._fields))
 
 
 def stage_arrays(arrays: Dict[str, np.ndarray], device) -> RawBatch:

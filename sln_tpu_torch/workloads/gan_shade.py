@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import SizeInfo, build_graphs
 from sln_tpu_torch.data.vocab import NYU40_CLASSES
+from sln_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 from sln_tpu_torch.render import assets, scene as scene_lib
 from sln_tpu_torch.render.image_io import read_png, write_png
 from sln_tpu_torch.spade.generator import SPADEGenerator4
@@ -310,7 +311,7 @@ def draw_zs(num_z: int, nz: int, seed: int = 0, z_chunk: int = Z_CHUNK,
 @torch.inference_mode()
 def colorize(model: SPADEGenerator4, spade_input: torch.Tensor,
              zs: torch.Tensor, num_z: int, out_dtype: str = "float32",
-             mesh=None) -> np.ndarray:
+             mesh: Optional[Mesh] = None) -> np.ndarray:
     """One room's (41, S, S) input and z chunks (C, chunk, nz) -> the first
     `num_z` images, (num_z, S, S, 3) RGB in [0, 1] (out_dtype "uint8": in
     [0, 255], converted on the device, so only the PNGs' bytes leave it).
@@ -318,18 +319,28 @@ def colorize(model: SPADEGenerator4, spade_input: torch.Tensor,
     A room's segmentation is fixed while its z vary (the reference runs
     50 full generator passes, test_SPADE_shade.py:74-80), so the
     segmentation half of the generator runs once (`seg_mods`) and every
-    z chunk's `decode` reuses it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "colorize(mesh=) (z sharded over devices) is not ported "
-            "(ROADMAP item 9)")
+    z chunk's `decode` reuses it.
+
+    mesh: multi-card serving over a process group (the JAX package's
+    gan_shade.py:395-452). The z stream is the single-device one; each
+    chunk is padded with discarded zero rows up to a multiple of the world
+    size and its rows split over the ranks; `seg_mods` runs once per rank;
+    the images are all-gathered (every rank returns them all) and the
+    padding dropped."""
+    sharded = mesh is not None and mesh.distributed
     mods = model.seg_mods(spade_input[None])
     imgs = []
     for z in zs:
+        n = z.shape[0]
+        if sharded:
+            z = F.pad(z, (0, 0, 0, -n % mesh.world_size))
+            z = z[mesh.rows(z.shape[0])]
         rgb = model.decode(mods, z)
         if out_dtype == "uint8":
             rgb = torch.round(((rgb + 1.0) * 0.5).clamp(0.0, 1.0)
                               * 255.0).to(torch.uint8)
+        if sharded:
+            rgb = all_gather_rows(rgb, mesh)[:n]
         imgs.append(rgb)
     out = torch.cat(imgs)[:num_z].permute(0, 2, 3, 1).cpu().numpy()
     return out if out_dtype == "uint8" else (out + 1.0) / 2.0

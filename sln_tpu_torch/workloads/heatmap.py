@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +23,8 @@ import torch
 from sln_tpu_torch.data.batch import SceneBatch
 from sln_tpu_torch.data.vocab import OBJECT_IDX_TO_NAME, PRED_IDX_TO_NAME
 from sln_tpu_torch.models.vae import Sg2ScVAE
+from sln_tpu_torch.parallel.mesh import (Mesh, global_from_host_shards,
+                                         shard_batch)
 from sln_tpu_torch.workloads.posterior import cholesky_factor
 
 HEATMAP_SEED = 0        # the JAX package's PRNGKey(0)
@@ -86,14 +88,24 @@ def heatmap_scene_batch(batch_size: int, max_objects: int, max_triples: int,
 
 
 def make_sampler(model: Sg2ScVAE, batch: SceneBatch, mean: np.ndarray,
-                 cov: np.ndarray
+                 cov: np.ndarray, mesh: Optional[Mesh] = None
                  ) -> Callable[[torch.Tensor], Tuple[torch.Tensor,
                                                      torch.Tensor]]:
     """eps (B, O, d) standard normal -> (boxes (B, O, 6), angles (B, O))
     decoded from z = mean + eps @ L^T, L the host-side float64 Cholesky
     factor of cov + 1e-8 I (on-device sampling + one batched decode in
     place of the reference's per-trial host sampling and decoder call,
-    test_heatmap.py:56-62)."""
+    test_heatmap.py:56-62).
+
+    mesh: multi-card serving over a process group (the JAX package's
+    heatmap.py:106-128). The caller draws the global eps on every rank;
+    each rank decodes its rows of the batch (the decoder runs in eval
+    mode, so rows are independent) and the outputs are all-gathered, so
+    every rank returns the global batch's layouts."""
+    sharded = mesh is not None and mesh.distributed
+    rows = mesh.rows(batch.objs.shape[0]) if sharded else slice(None)
+    if sharded:
+        batch = shard_batch(batch, mesh)
     device = batch.objs.device
     chol = torch.as_tensor(cholesky_factor(cov, 1e-8), device=device)
     mean_t = torch.as_tensor(mean, dtype=torch.float32, device=device)
@@ -101,9 +113,12 @@ def make_sampler(model: Sg2ScVAE, batch: SceneBatch, mean: np.ndarray,
 
     @torch.inference_mode()
     def sample(eps: torch.Tensor):
-        z = mean_t + torch.einsum("bol,kl->bok", eps, chol)
+        z = mean_t + torch.einsum("bol,kl->bok", eps[rows], chol)
         boxes, angle_lp = model.decode(z, batch)
-        return boxes, angle_lp.argmax(-1)
+        angles = angle_lp.argmax(-1)
+        if sharded:
+            boxes, angles = global_from_host_shards((boxes, angles), mesh)
+        return boxes, angles
 
     return sample
 

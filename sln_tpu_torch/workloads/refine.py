@@ -41,6 +41,8 @@ from sln_tpu_torch.data.batch import SceneBatch
 from sln_tpu_torch.data.vocab import NYU40_CLASSES
 from sln_tpu_torch.models.layers import fp32_accumulation
 from sln_tpu_torch.models.vae import Sg2ScVAE, reparameterize
+from sln_tpu_torch.parallel.mesh import (Mesh, all_reduce_flat, replicate,
+                                         shard_batch)
 from sln_tpu_torch.render import assets, scene as scene_lib
 from sln_tpu_torch.render.image_io import write_gif, write_png_gray
 
@@ -212,13 +214,31 @@ class Refiner:
     reference fine-tunes the parameters per room, which B=1 reproduces.
 
     `model` is updated in place: pass a copy to keep the original.
+
+    mesh: multi-card serving over a process group (the JAX package's
+    shard_refine_inputs). Every per-room input is this rank's rooms
+    (shard_refine_inputs), and each rank renders them through both
+    kernels. Each room's z keeps its own gradient; each rank's loss is its
+    rooms' share of the mean over the global batch (the local mean times
+    B_local / B), and the decoder's gradients are summed over the ranks, so
+    the shared parameters take the global batch's step, the same on every
+    rank. The angle noise is drawn for the global batch and sliced; a
+    noise passed to `step` is the global batch's too. The returned losses
+    are the global batch's.
     """
 
     def __init__(self, model: Sg2ScVAE, batch: SceneBatch, model_idx,
                  bank: scene_lib.DeviceBank, target_img, size_targets,
                  room_row_gt, cfg: Config, z0: torch.Tensor,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None):
         ref = self.ref = cfg.refine
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        world = self.mesh.world_size if self.mesh else 1
+        self.global_rows = world * batch.objs.shape[0]
+        self.rows = (self.mesh.rows(self.global_rows) if self.mesh
+                     else slice(None))
+        self.share = 1.0 / world          # B_local / B
         self.model = model.eval()
         self.batch, self.model_idx, self.bank = batch, model_idx, bank
         self.size_targets, self.room_row_gt = size_targets, room_row_gt
@@ -239,8 +259,11 @@ class Refiner:
         self.noises: List[torch.Tensor] = []
 
     def draw_noise(self) -> torch.Tensor:
-        return angle_noise(self.batch.objs.shape, self.ref.angle_noise_scale,
-                           self.generator, self.z.device)
+        """The next step's noise for this rank's rooms, drawn for the
+        global batch."""
+        shape = (self.global_rows, self.batch.objs.shape[1])
+        return angle_noise(shape, self.ref.angle_noise_scale,
+                           self.generator, self.z.device)[self.rows]
 
     def noise(self, k: int) -> torch.Tensor:
         """Step k's angle noise. The generator is drawn in step order
@@ -269,6 +292,9 @@ class Refiner:
         depth_loss, sem_loss = refine_losses_pre(imgs, *self.tg_pyr,
                                                  ref.pyramid_sizes)
         depth_loss, sem_loss = depth_loss.mean(), sem_loss.mean()
+        if self.mesh:
+            depth_loss, sem_loss = (depth_loss * self.share,
+                                    sem_loss * self.share)
 
         # size drift (diff_render.py:96-98, 163-164), mean over scenes
         room_dims = self.room_row_gt[:, 0, 3:]
@@ -280,6 +306,8 @@ class Refiner:
         wall_drift = ((wall_sq * self.room_mask[..., None]).sum((1, 2))
                       / (self.room_mask.sum(1) * 6.0))
         size_total = (size_loss + wall_drift).mean()
+        if self.mesh:
+            size_total = size_total * self.share
 
         # reference weighting (test_render_refine.py:349-354)
         total = (depth_loss * 2.0 * ref.depth_loss_weight
@@ -289,19 +317,32 @@ class Refiner:
                "size_loss": size_total, "total": total}
         return total, aux, imgs, boxes_pred, ang
 
+    def _global_aux(self, aux: Dict[str, torch.Tensor], grads=()):
+        """The losses detached, summed over the ranks under a mesh with
+        `grads` (summed in place) in the same collective."""
+        aux = {k: v.detach() for k, v in aux.items()}
+        if self.mesh:
+            *grads_sum, stacked = all_reduce_flat(
+                [*grads, torch.stack(list(aux.values()))], self.mesh)
+            for g, s in zip(grads, grads_sum):
+                g.copy_(s)
+            aux = dict(zip(aux, stacked.unbind()))
+        return aux
+
     def step(self, noise: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
         """One optimization step, with step k's noise unless one is given;
         returns the step's detached losses."""
-        if noise is None:
-            noise = self.noise(self.k)
+        noise = self.noise(self.k) if noise is None else noise[self.rows]
         self.k += 1
         self.opt.zero_grad(set_to_none=True)
         with fp32_accumulation():
             total, aux, *_ = self.forward(noise)
             total.backward()
+        aux = self._global_aux(aux, [p.grad for p in self.model.parameters()
+                                     if p.grad is not None])
         self.opt.step()
-        return {k: v.detach() for k, v in aux.items()}
+        return aux
 
     def run(self, num_iters: int) -> Dict[str, torch.Tensor]:
         """num_iters steps; per-iteration losses stacked on the device
@@ -314,15 +355,28 @@ class Refiner:
         """Full render + layout for artifact dumps (not in the loop), with
         step k's noise."""
         _, aux, imgs, boxes_pred, ang = self.forward(self.noise(k))
-        return aux, imgs, boxes_pred, ang
+        return self._global_aux(aux), imgs, boxes_pred, ang
 
 
 def make_refine_step(model, batch, model_idx, bank, target_img,
                      size_targets, room_row_gt, cfg: Config, z0,
-                     generator=None) -> Refiner:
+                     generator=None, mesh: Optional[Mesh] = None) -> Refiner:
     """The refinement loop's state and step for B scenes (see Refiner)."""
     return Refiner(model, batch, model_idx, bank, target_img, size_targets,
-                   room_row_gt, cfg, z0, generator)
+                   room_row_gt, cfg, z0, generator, mesh)
+
+
+def shard_refine_inputs(mesh: Mesh, batch: SceneBatch, model_idx,
+                        target_img, size_targets, room_row_gt, z0,
+                        model: Sg2ScVAE):
+    """This rank's rooms of every per-room input, and the model with rank
+    0's parameters (counterpart of the JAX package's refine.py:287-308):
+    (batch, model_idx, target_img, size_targets, room_row_gt, z0, model).
+    Rooms are independent along axis 0; the Refiner built on them under
+    the same mesh sums the decoder's gradients over the ranks."""
+    sharded = shard_batch((batch, model_idx, target_img, size_targets,
+                           room_row_gt, z0), mesh)
+    return (*sharded, replicate(model, mesh))
 
 
 @torch.no_grad()

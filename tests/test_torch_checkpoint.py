@@ -317,6 +317,7 @@ def test_train_cli_end_to_end_and_resume(tmp_path):
     restored = common.restore_model(cfg, "cpu")
     assert restored.cfg.embedding_dim == 16
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    # two shards without a launcher: refused, saying how to launch them
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         cli.main([*CLI, "--num_iterations", "1", "--output_dir",
                   str(tmp_path / "x"), "--num_data_shards", "2"])

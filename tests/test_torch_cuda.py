@@ -200,6 +200,51 @@ def test_train_step_on_the_card_matches_the_cpu(card):
         np.testing.assert_allclose(on_card[k], want, rtol=1e-4, err_msg=k)
 
 
+def test_two_ranks_sharing_the_card_match_the_single_step(card, tmp_path):
+    """Two data-parallel ranks on one card (gloo, as make_mesh picks when
+    the ranks outnumber the cards), 8 rows each, against the
+    single-process step on the same card from the same seeded weights and
+    the step's own random numbers, at the parallel CPU tests' narrow width
+    (at the recipe's width the step's float32 floor is above these gates:
+    chip_smoke's parallel phase): two steps' losses within rtol 1e-5,
+    parameters within 2.5e-3 (Adam's lr-sized steps on near-zero
+    gradients), both ranks' state the same bits."""
+    from torch_dist_worker import launch
+
+    from sln_tpu_torch.config import (ModelConfig, TrainConfig,
+                                      default_config)
+    from sln_tpu_torch.data import synthetic
+    from sln_tpu_torch.data.augment import SizeInfo
+    from sln_tpu_torch.train import loop
+    from sln_tpu_torch.workloads import common
+
+    cfg = default_config().replace(
+        model=ModelConfig(embedding_dim=16, gconv_num_layers=2),
+        train=TrainConfig(batch_size=16, kl_free_bits=0.05))
+    arrays, _ = common.load_arrays(16, cfg, "cpu", synthetic_seed=42)
+    table = synthetic.default_size_table()
+    raw = {k: arrays[k] for k in loop.RawBatch._fields}
+    ranks = launch(2, {"device": "cuda", "tasks": {"train": {
+        "kind": "train", "cfg": cfg, "size_table": table, "raw": raw,
+        "steps": 2}}}, tmp_path)(timeout=600)
+    assert [r["backend"] for r in ranks] == ["gloo", "gloo"]
+    state = loop.create_state(cfg, card)
+    step = loop.make_train_step(state, cfg, SizeInfo(
+        *(torch.as_tensor(x, device=card) for x in table)))
+    staged = loop.stage_arrays(raw, card)
+    want = [{k: float(v) for k, v in step(staged).items()} for _ in range(2)]
+    got = ranks[0]["train"]["mesh"]
+    for s in range(2):
+        for k, v in want[s].items():
+            np.testing.assert_allclose(float(got["losses"][s][k]), v,
+                                       rtol=1e-5, err_msg=f"step {s} {k}")
+    for p, q in zip(state.model.parameters(), got["state"]):
+        np.testing.assert_allclose(q.numpy(), p.detach().cpu().numpy(),
+                                   rtol=0, atol=2.5e-3)
+    for a, b in zip(got["state"], ranks[1]["train"]["mesh"]["state"]):
+        assert torch.equal(a, b)
+
+
 def test_spade_generator_on_the_card_matches_the_cpu(card):
     """The shading generator (ngf 16, 128 px, seeded random weights) on the
     card and on the CPU, from the same segmentation and z: fp32 convs (the

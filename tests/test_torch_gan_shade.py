@@ -339,9 +339,12 @@ def test_gan_shade_entry_point_writes_pngs(small, tmp_path):
 
 
 def test_unported_paths_raise(small, tmp_path, monkeypatch):
-    """The z-sharded colorize (ROADMAP item 9) raises, naming its item. The
-    Blender mask render (item 8b) is ported: with no blender binary it
-    raises BlenderNotAvailable, as the JAX package's does."""
+    """The Blender mask render (item 8b) is ported: with no blender binary
+    it raises BlenderNotAvailable, as the JAX package's does. The z-sharded
+    colorize is ported too (tests/test_torch_parallel_serving.py holds it
+    against the JAX package's mesh path): given a mesh without a process
+    group it is the single-device colorize, bit for bit."""
+    from sln_tpu_torch.parallel.mesh import Mesh
     from sln_tpu_torch.render.blender_bridge import BlenderNotAvailable
 
     _, _, path = small
@@ -352,6 +355,9 @@ def test_unported_paths_raise(small, tmp_path, monkeypatch):
     with pytest.raises(BlenderNotAvailable):
         entry.main(base + ["--semantic_source", "blender"])
     model = tg.make_spade_model(tcfg.default_config(), path, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tg.colorize(model, torch.zeros(41, CROP, CROP),
-                    torch.zeros(1, 10, NZ), 10, mesh=object())
+    seg = chw(seg_map(np.random.default_rng(5), CROP))
+    zs = torch.randn(2, 3, NZ, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(
+        tg.colorize(model, seg, zs, 5,
+                    mesh=Mesh(0, 1, torch.device("cpu"))),
+        tg.colorize(model, seg, zs, 5))

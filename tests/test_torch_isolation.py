@@ -101,6 +101,29 @@ def test_every_module_imports_with_jax_blocked():
         assert f"sln_tpu_torch.train.{module}" in names
     assert "sln_tpu_torch.render.blender.scene_spec" in names
     assert "sln_tpu_torch.render.preview" in names
+    assert "sln_tpu_torch.parallel.mesh" in names
+
+
+def test_parallel_modules_and_rank_worker_import_no_jax():
+    """The data-parallel modules build on torch.distributed and import
+    nothing of JAX; the rank worker the parallel tests spawn
+    (tests/torch_dist_worker.py) imports only the standard library, numpy,
+    torch and the port, and makes JAX and the JAX package unimportable in
+    each rank before it imports the port."""
+    mesh_mods = set(_imported_modules(PORT / "parallel" / "mesh.py"))
+    assert "torch.distributed" in mesh_mods
+    for rel in ("__init__.py", "mesh.py"):
+        mods = _imported_modules(PORT / "parallel" / rel)
+        assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], rel
+    worker = REPO / "tests" / "torch_dist_worker.py"
+    allowed = set(sys.stdlib_module_names) | {"numpy", "torch",
+                                              "sln_tpu_torch"}
+    bad = [m for m in _imported_modules(worker)
+           if m.split(".")[0] not in allowed]
+    assert not bad, bad
+    import torch_dist_worker
+
+    assert set(torch_dist_worker.BLOCKED) >= set(FORBIDDEN)
 
 
 def test_blender_side_modules_import_only_what_blender_has():
