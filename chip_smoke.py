@@ -7,6 +7,7 @@
     python3 chip_smoke.py --spade-recipe   # every phase, then the shading
                                            # generator's whole recipe
     python3 chip_smoke.py --parallel-only  # device, build, parallel
+    python3 chip_smoke.py --layout-eval-only  # device, build, layout_eval
 
 Phases, each printing a line as it ends:
   1. device   the card must be there (else this exits non-zero); prints
@@ -154,19 +155,47 @@ Phases, each printing a line as it ends:
               both kernels launched on every rank, the launches added to the
               kernel line); sharded colorize of one room x 50 z on
               artifacts/spade_gan.ckpt (within 1e-3), imgs/s
-  12. times   active chunks per tile and work items at 96 px / 8 rooms and
+  12. layout_eval
+              the host runtime and the layout evaluation: the native
+              library built by g++ from csrc/native.cpp (compiler and build
+              seconds); a room-JSON file of 16,384 rooms through
+              tensorize_file (the C++ packer) and through json +
+              tensorize_rooms, the arrays bit-equal, both rates in rooms/s
+              beside the host CPU; the C++ cuboid IoU against ops/iou.py on
+              the card over 10,000 random rotated pairs (1e-4) and
+              layout_iou card against CPU (1e-5); `python -m
+              sln_tpu_torch.tools.eval_refinement_quality --output_dir
+              artifacts --checkpoint_name bench --rooms 8` through its main
+              at three seeds (sigma 1, 60 iterations, 96 px, lr_z 2e-4):
+              both kernels launched, every value within PROBE_BANDS of the
+              JAX package's record (artifacts/refine_sweep.json row 0),
+              iou_refined - iou_perturbed >= -0.005, the loss histories'
+              first and last 10 iterations, seconds per probe; the probe on
+              the JAX package's own batch, z0 and noise
+              (artifacts/refine_probe_inputs.npz): the IoU and box L1 at z0
+              and z_gt within 1e-4 of the JAX package's on the CPU, its
+              first 8 losses within rtol 1e-3, the same IoU gate; and
+              iou_at_z_gt over 8 graph draws; `sweep_refinement` at two
+              rows into a temporary --out (row 0 repeats the probe's
+              digits, artifacts/refine_sweep.json byte for byte unchanged); an asset bank built by the
+              build_asset_bank CLI from a multi-part .obj corpus written to
+              a temporary directory, shells included, loaded through
+              scene_spec.load_bank and device_bank, retrieval picking the
+              matching class, and one refine step on the card with it
+              (finite loss, z moved, both kernels launched)
+  13. times   active chunks per tile and work items at 96 px / 8 rooms and
               256 px / 1 room; kernel and plain-version times at the 96 px,
               8-room shapes and both kernels' at 256 px (CUDA events),
               beside each kernel's bound; each kernel's device time split
               between its launches (torch.profiler)
-  13. profile torch.profiler over three 8-room refine steps: device busy
+  14. profile torch.profiler over three 8-room refine steps: device busy
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
 Then one JSON line of kernel records, the refine, sampling, train, spade,
 spade_train and culling lines, one line per bf16 group (bf16_train,
-bf16_sampling, bf16_refine, bf16_shading), the draw3d and parallel lines,
-the card's nvidia-smi line, and as the last
+bf16_sampling, bf16_refine, bf16_shading), the draw3d, parallel and
+layout_eval lines, the card's nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed phase raises, so the script
 exits non-zero and prints no result. All outputs go to a temporary directory
 that is removed at the end.
@@ -182,6 +211,7 @@ import dataclasses
 import json
 import os
 import pickle
+import platform
 import re
 import shutil
 import subprocess
@@ -2619,6 +2649,418 @@ def parallel_phase(tmp: str, device, smi: str) -> dict:
     return result, (fwd, bwd)
 
 
+# the layout_eval phase: the JAX package's record of the refinement probe
+# (artifacts/refine_sweep.json row 0: a TPU run, 8 rooms, sigma 1, 60
+# iterations at 96 px, lr_z 2e-4) and bands around it. The loop must not
+# hurt the layout: iou_refined - iou_perturbed >= PROBE_MIN_IOU_DELTA on
+# every run. Whether the last loss ends below the first is reported, not
+# gated: the loss is discontinuous and the angle noise is drawn afresh each
+# iteration, so the end of a 60-step trajectory is not a property of the
+# loop. On the JAX package's own draws the JAX loop ends below its first
+# loss on the TPU (4.5644 < 4.6789) and on the CPU by 0.0009; the JAX
+# sweep's own rows end above it in 4 of 8 settings. The loop's correctness
+# is gated on those draws instead (JAXIN_* below). The port draws the
+# graphs and z from torch.Generators, so its rooms are other samples of the
+# same scenes: on the card eight graph draws of the probe's 8 rooms give
+# iou_at_z_gt 0.0699-0.1184 (sd 0.0158; the phase prints it each run), on
+# the CPU six give loss_first 4.91-5.74 (sd 0.28), against the JAX
+# package's one draw (0.122 and 4.6789 on the TPU). Two independent draws
+# differ with sqrt(2) times that sd; each band is 3 of those: +-0.07 on the
+# IoUs, +-1.2 on the losses.
+JAX_SWEEP = "artifacts/refine_sweep.json"
+# the JAX package's own batch, z0 and per-iteration noise for that probe,
+# with what it computes from them on the CPU (tests/jax_probe_inputs.py):
+# on these draws the port's numbers that no draw moves (the IoU and box L1
+# at z0 and at z_gt, the z distance) agree within JAXIN_ATOL, and its first
+# JAXIN_STEPS losses within rtol JAXIN_RTOL (the refine's card-against-CPU
+# gate); later losses part as the discontinuous loss lets them
+JAX_PROBE_INPUTS = "artifacts/refine_probe_inputs.npz"
+JAXIN_KEYS = ("iou_perturbed", "iou_at_z_gt", "box_l1_perturbed",
+              "box_l1_at_z_gt", "z_l1_before")
+JAXIN_ATOL, JAXIN_RTOL, JAXIN_STEPS = 1e-4, 1e-3, 8
+PROBE_SEEDS = (13, 14, 15)          # --seed: z0's and the angle noise's draws
+PROBE_BANDS = {"iou_perturbed": 0.07, "iou_refined": 0.07,
+               "iou_at_z_gt": 0.07, "loss_first": 1.2, "loss_last": 1.2}
+PROBE_MIN_IOU_DELTA = -0.005        # the loop must not hurt the layout
+PROBE_GRAPH_SEEDS = range(8)
+SWEEP_ROWS = "0,6"                  # the reference row and sigma 0.5, lr 2e-2
+PACKER_ROOMS, PACKER_BASE = 16384, 256
+IOU_PAIRS = 10_000
+# a SUNCG-style corpus (o/usemtl groups, quads with v/vt/vn indices):
+# class -> (model id, [(part, lo, hi)]) in metres, y up
+LAYOUT_CORPUS = {
+    "bed": ("bed_101", [("frame", (0, .2, 0), (2.0, .5, 1.6)),
+                        ("mattress", (.05, .5, .05), (1.95, .75, 1.55)),
+                        ("leg_a", (0, 0, 0), (.1, .2, .1)),
+                        ("leg_b", (1.9, 0, 1.5), (2.0, .2, 1.6)),
+                        ("headboard", (0, .5, 0), (2.0, 1.1, .08))]),
+    "chair": ("chair_7", [("seat", (0, .4, 0), (.5, .48, .5)),
+                          ("back", (0, .48, .42), (.5, 1.0, .5)),
+                          ("leg_a", (.02, 0, .02), (.08, .4, .08))]),
+    "table": ("table_33", [("top", (0, .7, 0), (1.4, .76, .8)),
+                           ("leg_a", (.05, 0, .05), (.12, .7, .12))]),
+    "sofa": ("sofa_2", [("base", (0, .1, 0), (1.8, .45, .9)),
+                        ("back", (0, .45, .7), (1.8, .9, .9)),
+                        ("arm_l", (0, .45, 0), (.15, .65, .9))]),
+}
+LAYOUT_ROOM = (4.0, 2.6, 5.0)
+BOX_QUADS = ((0, 1, 3, 2), (4, 5, 7, 6), (0, 1, 5, 4), (2, 3, 7, 6),
+             (0, 2, 6, 4), (1, 3, 7, 5))
+
+
+def write_box_parts(path: str, parts) -> None:
+    """An .obj of axis-aligned box parts, one `o` group each."""
+    with open(path, "w") as f:
+        f.write("mtllib model.mtl\nvt 0 0\nvn 0 1 0\n")
+        for i, (name, lo, hi) in enumerate(parts):
+            f.write(f"o {name}\nusemtl {name}_mat\n")
+            for x in (lo[0], hi[0]):
+                for y in (lo[1], hi[1]):
+                    for z in (lo[2], hi[2]):
+                        f.write(f"v {x:.6f} {y:.6f} {z:.6f}\n")
+            for q in BOX_QUADS:
+                f.write("f " + " ".join(f"{8 * i + k + 1}/1/1" for k in q)
+                        + "\n")
+
+
+def write_layout_corpus(root: str) -> dict:
+    """<root>/object/<mid>/<mid>.obj, suncg_data_many.json, one room's
+    wall/floor/ceiling shells and wall_data_wfc.json: the build_asset_bank
+    CLI's arguments."""
+    meta = {}
+    for cls, (mid, parts) in LAYOUT_CORPUS.items():
+        os.makedirs(os.path.join(root, "object", mid))
+        write_box_parts(os.path.join(root, "object", mid, f"{mid}.obj"),
+                        parts)
+        meta[cls] = [{"id": mid,
+                      "bbox_min": np.min([p[1] for p in parts], 0).tolist(),
+                      "bbox_max": np.max([p[2] for p in parts], 0).tolist()}]
+    X, Y, Z = LAYOUT_ROOM
+    house = os.path.join(root, "room", "house0")
+    os.makedirs(house)
+    for suffix, lo, hi in (("w", (0, 0, 0), (X, Y, Z)),
+                           ("f", (0, -.08, 0), (X, 0, Z)),
+                           ("c", (0, Y, 0), (X, Y + .08, Z))):
+        write_box_parts(os.path.join(house, f"fr_0rm_0{suffix}.obj"),
+                        [(suffix, lo, hi)])
+    paths = {"metadata": os.path.join(root, "suncg_data_many.json"),
+             "wall_metadata": os.path.join(root, "wall_data_wfc.json")}
+    with open(paths["metadata"], "w") as f:
+        json.dump(meta, f)
+    with open(paths["wall_metadata"], "w") as f:
+        json.dump([{"house_id": "house0", "model_id": "fr_0rm_0",
+                    "wall_bbox_min": [0, 0, 0],
+                    "wall_bbox_max": list(LAYOUT_ROOM)}], f)
+    return paths
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (its model name, else its
+    vendor, family and model) and the machine type."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+        if fields.get(k))
+    return f"{name or 'not reported'} ({platform.machine()})"
+
+
+def rotated_quads(rng, n: int) -> np.ndarray:
+    """n random rotated rectangles (n, 4, 2), both windings."""
+    c = rng.uniform(0, 3, (n, 1, 2))
+    wh = rng.uniform(0.3, 2.0, (n, 1, 2)) / 2
+    base = np.array([[-1, -1], [-1, 1], [1, 1], [1, -1]]) * wh
+    th = rng.uniform(0, np.pi, n)
+    rot = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                    np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    q = base @ rot + c
+    flip = rng.uniform(size=n) < 0.5
+    q[flip] = q[flip, ::-1]
+    return q
+
+
+def iou_delta_gate(name: str, rec: dict) -> None:
+    delta = rec["iou_refined"] - rec["iou_perturbed"]
+    if delta < PROBE_MIN_IOU_DELTA:
+        raise AssertionError(f"{name}: the loop cut the IoU by {-delta:.4f}")
+
+
+def layout_eval_phase(tmp: str, device, smi: str) -> dict:
+    """The host runtime, the layout IoU, the refinement probe and its sweep,
+    and an asset bank built from .obj files (see the module docstring)."""
+    from sln_tpu_torch import native
+    from sln_tpu_torch.data import synthetic, tensorize
+    from sln_tpu_torch.data.batch import SceneBatch
+    from sln_tpu_torch.ops import iou
+    from sln_tpu_torch.tools import build_asset_bank
+    from sln_tpu_torch.tools import eval_refinement_quality as probe_tool
+    from sln_tpu_torch.tools import sweep_refinement
+
+    out = {"card": smi, "host_cpu": host_cpu()}
+    with phase("layout_eval"):
+        # 1. the native library, built by g++ from csrc/native.cpp
+        cxx = native.compiler()
+        version = subprocess.run([cxx, "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout.splitlines()[0]
+        t0 = time.perf_counter()
+        built = not native.library_path().is_file()
+        native.load()
+        out["native_build_s"] = time.perf_counter() - t0
+        print(f"  native library {native.library_path().name} "
+              f"{'built' if built else 'found'} in {out['native_build_s']:.2f}"
+              f" s by {cxx}: {version}")
+        out["compiler"] = version
+
+        # 2. the packer: 16,384 rooms (copies of 256 under new ids)
+        base = list(synthetic.generate_rooms(PACKER_BASE, seed=5).values())
+        path = os.path.join(tmp, "rooms.json")
+        with open(path, "w") as f:
+            json.dump({str(i): base[i % PACKER_BASE]
+                       for i in range(PACKER_ROOMS)}, f)
+        with open(path) as f:
+            if native.pack_rooms(f.read(), 32) is None:
+                raise AssertionError("the packer rejected the rooms file")
+        t0 = time.perf_counter()
+        packed = tensorize.tensorize_file(path, 32)
+        t_pack = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = tensorize.tensorize_rooms(tensorize.load_rooms(path), 32)
+        t_plain = time.perf_counter() - t0
+        for k, v in plain.items():
+            if packed[k].dtype != v.dtype or not np.array_equal(packed[k], v):
+                raise AssertionError(f"packer {k} differs from json + "
+                                     "tensorize_rooms")
+        out["packer_rooms_per_s"] = PACKER_ROOMS / t_pack
+        out["python_rooms_per_s"] = PACKER_ROOMS / t_plain
+        print(f"  packer {out['packer_rooms_per_s']:.0f} rooms/s, json + "
+              f"tensorize_rooms {out['python_rooms_per_s']:.0f} rooms/s "
+              f"({PACKER_ROOMS} rooms, {os.path.getsize(path)} bytes, arrays"
+              f" bit-equal; host {out['host_cpu']}, {os.cpu_count()} cores;"
+              f" card {smi})", flush=True)
+
+        # 3. the IoU: C++ (float64, host) against torch on the card
+        rng = np.random.default_rng(0)
+        qa, qb = rotated_quads(rng, IOU_PAIRS), rotated_quads(rng, IOU_PAIRS)
+        y1 = rng.uniform(0, 1, (IOU_PAIRS, 2)).cumsum(-1)
+        y2 = rng.uniform(0, 1, (IOU_PAIRS, 2)).cumsum(-1)
+        cpp = np.array([native.cuboid_iou(qa[i], y1[i], qb[i], y2[i])
+                        for i in range(IOU_PAIRS)])
+
+        def on(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+        card = iou.cuboid_iou(on(qa), on(y1[:, 0]), on(y1[:, 1]), on(qb),
+                              on(y2[:, 0]), on(y2[:, 1])).cpu().numpy()
+        out["iou_cpp_vs_card"] = float(np.abs(cpp - card).max())
+        boxes = rng.uniform(0, 0.6, (2, 64, 32, 3))
+        boxes = np.concatenate([boxes[0], boxes[0] + 0.05 + 0.3 * boxes[1]],
+                               -1)
+        ang = rng.integers(0, 24, (2, 64, 32))
+        dims = rng.uniform(2, 6, (64, 3))
+        args = (boxes, ang[0], boxes[:, ::-1].copy(), ang[1], dims)
+        lay_card = iou.layout_iou(*map(on, args)).cpu()
+        lay_cpu = iou.layout_iou(*(torch.as_tensor(a, dtype=torch.float32)
+                                   for a in args))
+        out["layout_iou_card_vs_cpu"] = max_err(lay_card, lay_cpu)
+        overlapping = int((cpp > 0.01).sum())
+        print(f"  cuboid IoU, {IOU_PAIRS} pairs ({overlapping} overlapping):"
+              f" C++ vs the card {out['iou_cpp_vs_card']:.3e} (gate 1e-4); "
+              f"layout_iou (64 x 32) card vs CPU "
+              f"{out['layout_iou_card_vs_cpu']:.3e} (gate 1e-5)")
+        if out["iou_cpp_vs_card"] > 1e-4 or overlapping < IOU_PAIRS // 10:
+            raise AssertionError("cuboid IoU: C++ against the card")
+        if out["layout_iou_card_vs_cpu"] > 1e-5:
+            raise AssertionError("layout_iou: card against CPU")
+
+        # 4. the probe through its entry point, three seeds
+        with open(JAX_SWEEP, "rb") as f:
+            sweep_bytes = f.read()
+        jax_row = json.loads(sweep_bytes)[0]
+        argv = ["--output_dir", CHECKPOINT.output_dir, "--checkpoint_name",
+                CHECKPOINT.checkpoint_name, "--rooms", "8"]
+        fwd = bwd = 0
+        out["probe"] = {}
+        for seed in PROBE_SEEDS:
+            rc.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec, losses = probe_tool.main(argv + ["--seed", str(seed)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            f_, b_ = rc.FWD_LAUNCHES, rc.BWD_LAUNCHES
+            if f_ < ITERS or b_ < ITERS:
+                raise AssertionError(f"probe seed {seed}: fwd {f_} / bwd "
+                                     f"{b_} launches for {ITERS} iterations")
+            fwd, bwd = fwd + f_, bwd + b_
+            if not all(np.isfinite(v) for v in rec.values()):
+                raise AssertionError(f"probe seed {seed}: {rec}")
+            for k, width in PROBE_BANDS.items():
+                if abs(rec[k] - jax_row[k]) > width:
+                    raise AssertionError(
+                        f"probe seed {seed}: {k} {rec[k]:.4f} outside "
+                        f"{jax_row[k]} +- {width}")
+            iou_delta_gate(f"probe seed {seed}", rec)
+            out["probe"][str(seed)] = dict(
+                rec, seconds=secs, launches=[f_, b_],
+                loss_mean_first_last_10=[float(losses[:10].mean()),
+                                         float(losses[-10:].mean())])
+            print(f"  probe seed {seed}: IoU {rec['iou_perturbed']:.4f} -> "
+                  f"{rec['iou_refined']:.4f} (at z_gt "
+                  f"{rec['iou_at_z_gt']:.4f}), loss {rec['loss_first']:.4f}"
+                  f" -> {rec['loss_last']:.4f}, box L1 "
+                  f"{rec['box_l1_perturbed']:.5f} -> "
+                  f"{rec['box_l1_refined']:.5f}; mean loss of the first and "
+                  f"last 10 iterations {losses[:10].mean():.4f}, "
+                  f"{losses[-10:].mean():.4f}; {secs:.2f} s, launches fwd "
+                  f"{f_} bwd {b_} (JAX record: IoU {jax_row['iou_perturbed']}"
+                  f" -> {jax_row['iou_refined']}, z_gt "
+                  f"{jax_row['iou_at_z_gt']}, loss {jax_row['loss_first']} "
+                  f"-> {jax_row['loss_last']})", flush=True)
+        # the probe on the JAX package's own draws
+        pargs = probe_tool.parse_args(argv)
+        cfg_p = probe_tool.probe_config(pargs)
+        model = common.restore_model(cfg_p, device)
+        d = np.load(JAX_PROBE_INPUTS)
+        jb = SceneBatch(*(torch.as_tensor(d[f"batch_{k}"], device=device)
+                          for k in SceneBatch._fields))
+        jb = jb._replace(**{k: getattr(jb, k).long() for k in (
+            "objs", "angles", "attrs", "triples", "room_ids")})
+        rc.reset_launch_counts()
+        rec, losses = probe_tool.probe(
+            model, jb, cfg_p, 1.0, PROBE_SEEDS[0],
+            z0=torch.as_tensor(d["z0"], device=device),
+            noises=torch.as_tensor(d["noise"], device=device))
+        torch.cuda.synchronize()
+        fwd, bwd = fwd + rc.FWD_LAUNCHES, bwd + rc.BWD_LAUNCHES
+        jax_cpu = {k: float(d[f"jax_cpu_{k}"]) for k in JAXIN_KEYS
+                   + ("iou_refined", "loss_first", "loss_last")}
+        dev_keys = {k: abs(rec[k] - jax_cpu[k]) for k in JAXIN_KEYS}
+        steps = np.abs(losses[:JAXIN_STEPS] / d["jax_cpu_totals"][:JAXIN_STEPS]
+                       - 1.0).max()
+        out["probe_on_jax_draws"] = dict(
+            rec, losses=losses.tolist(), jax_cpu=jax_cpu,
+            jax_cpu_totals=d["jax_cpu_totals"].tolist(),
+            max_abs_vs_jax_cpu=dev_keys, first_steps_rel=float(steps))
+        print(f"  probe on the JAX package's draws: IoU "
+              f"{rec['iou_perturbed']:.5f} -> {rec['iou_refined']:.5f} (at "
+              f"z_gt {rec['iou_at_z_gt']:.5f}), loss {rec['loss_first']:.4f}"
+              f" -> {rec['loss_last']:.4f}; JAX on the CPU "
+              f"{jax_cpu['iou_perturbed']:.5f} -> {jax_cpu['iou_refined']:.5f}"
+              f" ({jax_cpu['iou_at_z_gt']:.5f}), {jax_cpu['loss_first']:.4f}"
+              f" -> {jax_cpu['loss_last']:.4f}; JAX's TPU record "
+              f"{jax_row['iou_perturbed']} -> {jax_row['iou_refined']} "
+              f"({jax_row['iou_at_z_gt']}), {jax_row['loss_first']} -> "
+              f"{jax_row['loss_last']}; draw-free keys within "
+              f"{max(dev_keys.values()):.2e} (gate {JAXIN_ATOL}), first "
+              f"{JAXIN_STEPS} losses within rtol {steps:.2e} (gate "
+              f"{JAXIN_RTOL})", flush=True)
+        if max(dev_keys.values()) > JAXIN_ATOL or steps > JAXIN_RTOL:
+            raise AssertionError(f"the probe on the JAX package's draws: "
+                                 f"{dev_keys}, first losses {steps}")
+        iou_delta_gate("the probe on the JAX package's draws", rec)
+
+        # the card's own spread over graph draws, at z_gt (no render)
+        arrays, size_info = common.load_arrays(8, cfg_p, device,
+                                               synthetic_seed=11)
+
+        def t(k):
+            return torch.as_tensor(arrays[k][:8], device=device)
+
+        draws = []
+        for gs in PROBE_GRAPH_SEEDS:
+            b = build_graphs(t("objs"), t("boxes"), t("angles"),
+                             t("obj_mask"), t("room_ids"), size_info,
+                             max_on_rels=16,
+                             generator=torch.Generator(device).manual_seed(gs))
+            with torch.no_grad():
+                draws.append(float(refine.decoded_layout_iou(
+                    model, b, model.encode(b)[0])))
+        out["iou_at_z_gt_over_graph_draws"] = draws
+        print(f"  iou_at_z_gt over {len(draws)} graph draws on the card: "
+              f"{min(draws):.4f}-{max(draws):.4f}, sd "
+              f"{float(np.std(draws, ddof=1)):.4f}")
+
+        # 5. the sweep: two rows, into a temporary --out
+        rc.reset_launch_counts()
+        sweep_out = os.path.join(tmp, "refine_sweep.json")
+        rows = sweep_refinement.main(["--rows", SWEEP_ROWS, "--out",
+                                      sweep_out, "--rooms", "8"])
+        torch.cuda.synchronize()
+        fwd, bwd = fwd + rc.FWD_LAUNCHES, bwd + rc.BWD_LAUNCHES
+        with open(JAX_SWEEP, "rb") as f:
+            if f.read() != sweep_bytes:
+                raise AssertionError(f"{JAX_SWEEP} changed")
+        with open(sweep_out) as f:
+            if json.load(f) != rows or len(rows) != 2:
+                raise AssertionError("the sweep's --out file")
+        first = probe_tool.rounded(out["probe"][str(PROBE_SEEDS[0])])
+        same = {k: first[k] for k in probe_tool.DIGITS}
+        if {k: rows[0][k] for k in same} != same:
+            raise AssertionError("sweep row 0 differs from the probe at "
+                                 f"seed {PROBE_SEEDS[0]}: {rows[0]}")
+        out["sweep"] = rows
+        print(f"  sweep rows {SWEEP_ROWS}: iou_delta "
+              f"{[r['iou_delta'] for r in rows]}, loss_cut_pct "
+              f"{[r['loss_cut_pct'] for r in rows]}; row 0 repeats the "
+              f"probe's digits; {JAX_SWEEP} unchanged")
+
+        # 6. an asset bank from .obj files, then one refine step on it
+        corpus = write_layout_corpus(os.path.join(tmp, "corpus"))
+        bank_path = os.path.join(tmp, "bank.npz")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            build_asset_bank.main([
+                "--obj_dir", os.path.join(tmp, "corpus", "object"),
+                "--metadata", corpus["metadata"], "--out", bank_path,
+                "--max_len", "0.35", "--max_faces", "512",
+                "--room_dir", os.path.join(tmp, "corpus", "room"),
+                "--wall_metadata", corpus["wall_metadata"]])
+        out["bank_build_s"] = time.perf_counter() - t0
+        bank_host, shells = scene_spec.load_bank(bank_path)
+        if shells is None or shells.verts.shape[0] != 2:
+            raise AssertionError("the bank's shells")
+        from sln_tpu_torch.data.vocab import OBJECT_IDX_TO_NAME
+        bed = OBJECT_IDX_TO_NAME.index("bed")
+        chair = OBJECT_IDX_TO_NAME.index("chair")
+        midx = assets.retrieve_models(
+            np.array([bed, chair]), np.array([[0, 0, 0, 2.0, 1.0, 1.6],
+                                              [0, 0, 0, .5, 1.0, .5]]),
+            bank_host)
+        if list(bank_host.model_class[midx]) != [bed, chair]:
+            raise AssertionError(f"retrieval picked {midx}")
+        bank = scene_lib.device_bank(bank_host, shells=shells, device=device)
+        batch = probe_tool.val_batch(cfg_p, 1, device)
+        ins = refine.prepare_refine_inputs(
+            batch, bank_host, bank, refine.refine_render_config(cfg_p))
+        with torch.no_grad():
+            z0 = model.encode(batch)[0]
+        rc.reset_launch_counts()
+        refiner = refine.make_refine_step(copy.deepcopy(model), batch,
+                                          ins[0], bank, *ins[1:], cfg_p, z0)
+        loss = float(refiner.step()["total"])
+        torch.cuda.synchronize()
+        f_, b_ = rc.FWD_LAUNCHES, rc.BWD_LAUNCHES
+        moved = float((refiner.z.detach() - z0).abs().max())
+        if not (np.isfinite(loss) and moved > 0 and f_ > 0 and b_ > 0):
+            raise AssertionError(f"refine step on the built bank: loss "
+                                 f"{loss}, z moved {moved}, fwd {f_} bwd {b_}")
+        fwd, bwd = fwd + f_, bwd + b_
+        out["bank"] = {"models": int(bank_host.verts.shape[0]),
+                       "vm": bank_host.vm, "fm": bank_host.fm,
+                       "faces_per_scene": int(ins[0].shape[1] * bank_host.fm
+                                              + shells.faces.shape[1]),
+                       "loss": loss, "z_moved": moved,
+                       "launches": [f_, b_]}
+        print(f"  asset bank: {out['bank']['models']} models (Fm "
+              f"{bank_host.fm}) + 2 shells built in {out['bank_build_s']:.2f}"
+              f" s; one refine step on it: loss {loss:.4f}, z moved "
+              f"{moved:.3e}, launches fwd {f_} bwd {b_}", flush=True)
+    out["launches"] = [fwd, bwd]
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2631,6 +3073,8 @@ def main() -> None:
                          "whole recipe (4 chained runs of 750 steps)")
     ap.add_argument("--parallel-only", action="store_true",
                     help="run the device, build and parallel phases")
+    ap.add_argument("--layout-eval-only", action="store_true",
+                    help="run the device, build and layout_eval phases")
     ap.add_argument("--parallel-worker", metavar="DIR",
                     help="one rank of the parallel phase (the phase starts "
                          "the ranks with torch.distributed.run)")
@@ -2641,7 +3085,7 @@ def main() -> None:
     tmp = tempfile.mkdtemp(prefix="sln_chip_smoke_")
     try:
         run(tmp, args.kernels_only, args.train_recipe, args.spade_recipe,
-            args.parallel_only)
+            args.parallel_only, args.layout_eval_only)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2654,7 +3098,8 @@ def print_ok() -> None:
 
 
 def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
-        spade_recipe: bool = False, parallel_only: bool = False) -> None:
+        spade_recipe: bool = False, parallel_only: bool = False,
+        layout_only: bool = False) -> None:
     with phase("device"):
         if not torch.cuda.is_available():
             raise RuntimeError("torch.cuda.is_available() is False: "
@@ -2690,6 +3135,11 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     if parallel_only:
         parallel, _ = parallel_phase(tmp, device, smi)
         print(json.dumps({"parallel": parallel}))
+        print_ok()
+        return
+    if layout_only:
+        print(json.dumps({"layout_eval": layout_eval_phase(tmp, device,
+                                                           smi)}))
         print_ok()
         return
 
@@ -2906,6 +3356,9 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     parallel, (par_fwd, par_bwd) = parallel_phase(tmp, device, smi)
     launches["fwd"] += par_fwd
     launches["bwd"] += par_bwd
+    layout = layout_eval_phase(tmp, device, smi)
+    launches["fwd"] += layout["launches"][0]
+    launches["bwd"] += layout["launches"][1]
 
     fwd_ms, bwd_ms, fwd_plain, bwd_plain, fwd_bound, bwd_bound = \
         times_phase(packed96, packed256, rcfg96, rcfg256, device)
@@ -2938,6 +3391,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
         print(json.dumps({f"bf16_{group}": numbers}))
     print(json.dumps({"draw3d": drawing}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"layout_eval": layout}))
     print_ok()
 
 

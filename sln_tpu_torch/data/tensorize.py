@@ -1,7 +1,7 @@
-"""Host-side tensorization: raw room JSON -> padded numpy arrays.
-
-Own copy of the Python path of sln_tpu/data/tensorize.py (the C++ packer
-behind sln_tpu/native.py is not ported). Conventions:
+"""Host-side tensorization: raw room JSON -> padded numpy arrays (own copy
+of sln_tpu/data/tensorize.py). A file goes through the C++ packer
+(sln_tpu_torch/native.py `pack_rooms`); `tensorize_rooms` is its plain
+Python version, and parses only what the packer rejects. Conventions:
 * slots [0..n-2] real objects, slot n-1 the __room__ node, padding after;
 * non-room boxes normalized to [0,1] by the room extents; the room row
   stays absolute [0, 0, 0, X, Y, Z] (reference suncg_dataset.py:216-231).
@@ -20,6 +20,20 @@ from sln_tpu_torch.data.vocab import ROOM_IDX, VOCAB
 def load_rooms(path: str) -> Dict[str, dict]:
     with open(path, "r") as f:
         return json.load(f)
+
+
+def tensorize_file(path: str, max_objects: int) -> Dict[str, np.ndarray]:
+    """Tensorize a room-JSON file with the C++ packer; a text the packer
+    rejects is parsed with json and tensorize_rooms (which raises on what
+    is not the schema)."""
+    from sln_tpu_torch import native
+
+    with open(path, "r") as f:
+        text = f.read()
+    packed = native.pack_rooms(text, max_objects)
+    if packed is not None:
+        return packed
+    return tensorize_rooms(json.loads(text), max_objects)
 
 
 def tensorize_rooms(data: Dict[str, dict], max_objects: int
@@ -58,3 +72,12 @@ def tensorize_rooms(data: Dict[str, dict], max_objects: int
 
     return {"objs": objs, "boxes": boxes, "angles": angles,
             "obj_mask": mask, "room_ids": room_ids}
+
+
+def denormalize_boxes(boxes: np.ndarray, room_mask: np.ndarray) -> np.ndarray:
+    """Undo per-room normalization; room rows pass through unchanged
+    (testing/test_utils.py:119-132 `restore_box`)."""
+    room_dims = (boxes * room_mask[..., None]).sum(axis=-2)[..., 3:]  # (..., 3)
+    scale = np.concatenate([room_dims, room_dims], axis=-1)[..., None, :]
+    out = boxes * scale
+    return np.where(room_mask[..., None], boxes, out)

@@ -1,13 +1,23 @@
-"""Geometric relationship oracle, vectorized (counterpart of
-sln_tpu/ops/relations.py:94 relation_matrix; predicate logic of the
-reference's compute_rel, utils.py:36-80). Boxes are (x0, y0, z0, x1, y1,
-z1); y is up."""
+"""Geometric relationship oracle (counterpart of sln_tpu/ops/relations.py;
+predicate logic of the reference's compute_rel, utils.py:36-80), in two
+forms:
+
+* `compute_rel_host` / `compute_rel_host_idx`: scalar float64 numpy, the
+  golden oracle that `relation_matrix` is held against;
+* `relation_matrix`: the (..., O, O) pairwise predicate matrix in one
+  vectorized torch call (scene-graph augmentation and the accuracy metric).
+
+Boxes are (x0, y0, z0, x1, y1, z1); y is up.
+"""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from sln_tpu_torch.data.vocab import PRED_IDX_TO_NAME
 
 # Predicate indices (sln_tpu_torch.data.vocab.PRED_IDX_TO_NAME order).
 P_IN_ROOM = 0
@@ -26,6 +36,56 @@ P_ON = 15
 ON_DELTA_THRESHOLD = 0.05      # reference: utils.py:49
 TOUCH_IOU_LO = 0.0001          # reference: utils.py:65
 TOUCH_IOU_HI = 0.5
+
+
+def compute_rel_host(box1, box2, name1=None, name2=None) -> str:
+    """Scalar oracle: the predicate *name* of subject box1 and object box2
+    (reference utils.py:36-80)."""
+    box1 = np.asarray(box1, dtype=np.float64)
+    box2 = np.asarray(box2, dtype=np.float64)
+    c1 = (box1[:3] + box1[3:]) / 2.0
+    c2 = (box2[:3] + box2[3:]) / 2.0
+
+    if name2 == "__room__":
+        return "__in_room__"
+
+    # 'on': subject center inside object's xz footprint, resting on top
+    if box2[0] <= c1[0] <= box2[3] and box2[2] <= c1[2] <= box2[5]:
+        delta1 = c1[1] - c2[1]
+        delta2 = (box1[4] - box1[1] + box2[4] - box2[1]) / 2.0
+        if abs(delta1 - delta2) < ON_DELTA_THRESHOLD:
+            return "on"
+
+    d = c1 - c2
+    theta = math.atan2(d[2], d[0])
+
+    area_s = (box1[3] - box1[0]) * (box1[5] - box1[2])
+    area_o = (box2[3] - box2[0]) * (box2[5] - box2[2])
+    ix0, ix1 = max(box1[0], box2[0]), min(box1[3], box2[3])
+    iz0, iz1 = max(box1[2], box2[2]), min(box1[5], box2[5])
+    area_i = max(0.0, ix1 - ix0) * max(0.0, iz1 - iz0)
+    iou = area_i / (area_s + area_o - area_i)
+    touching = TOUCH_IOU_LO < iou < TOUCH_IOU_HI
+
+    if (box1[0] < box2[0] and box1[3] > box2[3]
+            and box1[2] < box2[2] and box1[5] > box2[5]):
+        return "surrounding"
+    if (box1[0] > box2[0] and box1[3] < box2[3]
+            and box1[2] > box2[2] and box1[5] < box2[5]):
+        return "inside"
+    if theta >= 3 * math.pi / 4 or theta <= -3 * math.pi / 4:
+        return "right touching" if touching else "left of"
+    if -3 * math.pi / 4 <= theta < -math.pi / 4:
+        return "behind touching" if touching else "behind"
+    if -math.pi / 4 <= theta < math.pi / 4:
+        return "left touching" if touching else "right of"
+    # math.pi / 4 <= theta < 3 * math.pi / 4
+    return "front touching" if touching else "in front of"
+
+
+def compute_rel_host_idx(box1, box2, name1=None, name2=None) -> int:
+    """compute_rel_host as a predicate index."""
+    return PRED_IDX_TO_NAME.index(compute_rel_host(box1, box2, name1, name2))
 
 
 def relation_matrix(boxes: torch.Tensor) -> torch.Tensor:

@@ -140,9 +140,9 @@ class ShellBank(NamedTuple):
     bank is built, with the bad-wall drop baked into face_valid
     (`shell_wall_drop_normalized`), and retrieval is an argmin over the
     stored original aspect ratios (`retrieve_shell_np`). Entry 0 is the
-    procedural exact-fit shell; a bank of real shells is read from an .npz
-    (render/blender/scene_spec.py `load_bank`), and building one is not
-    ported."""
+    procedural exact-fit shell; a bank of real shells is built by
+    tools/build_asset_bank.py and read from its .npz
+    (render/blender/scene_spec.py `load_bank`)."""
     verts: np.ndarray        # (S, Vs, 3) in [0, 1]^3
     faces: np.ndarray        # (S, Fs, 3) int32, padded with 0
     part: np.ndarray         # (S, Fs) 0=wall 1=floor 2=ceiling

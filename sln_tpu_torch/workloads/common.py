@@ -4,7 +4,8 @@
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple, Union
+import tempfile
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -17,17 +18,84 @@ from sln_tpu_torch.train.checkpoint import (latest_path, load_checkpoint,
                                             reference_pt_path)
 
 
+def _generator_code_token() -> str:
+    """Short hash of the sources that make the synthetic arrays
+    (synthetic.py, tensorize.py and vocab.py, which defines the class
+    indices), so the disk cache invalidates itself when any of them
+    changes."""
+    import hashlib
+
+    from sln_tpu_torch.data import vocab
+
+    h = hashlib.sha1()
+    for mod in (synthetic, tensorize, vocab):
+        with open(mod.__file__, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:8]
+
+
+def synthetic_cache_dir() -> Optional[str]:
+    """The data cache's directory: $SLN_TPU_DATA_CACHE, else
+    sln_tpu_torch_data_cache under the temporary directory (not the JAX
+    package's); None when the variable is "0" (no cache)."""
+    root = os.environ.get("SLN_TPU_DATA_CACHE", "")
+    if root == "0":
+        return None
+    return root or os.path.join(tempfile.gettempdir(),
+                                "sln_tpu_torch_data_cache")
+
+
+def _synthetic_arrays_cached(n: int, seed: int, max_objects: int
+                             ) -> Dict[str, np.ndarray]:
+    """Tensorized synthetic rooms, cached on disk as .npz under the key
+    (n, seed, max_objects, generator code hash): generating rooms is host
+    Python (minutes for thousands of rooms), and the key makes the cache
+    exact. SLN_TPU_DATA_CACHE=0 disables it, or names its directory."""
+    cache_dir = synthetic_cache_dir()
+    if cache_dir is None:
+        return tensorize.tensorize_rooms(
+            synthetic.generate_rooms(n, seed=seed), max_objects)
+    path = os.path.join(
+        cache_dir,
+        f"syn_{n}_{seed}_{max_objects}_{_generator_code_token()}.npz")
+    if os.path.isfile(path):
+        # an entry that cannot be read (another user's file, a truncated
+        # write) is regenerated
+        try:
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+        except Exception as e:
+            print(f"| data cache unreadable ({path}: {e}); regenerating",
+                  flush=True)
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+    arrays = tensorize.tensorize_rooms(
+        synthetic.generate_rooms(n, seed=seed), max_objects)
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+        tmp = path + f".tmp{os.getpid()}"
+        with open(tmp, "wb") as f:     # a file object: np.savez would
+            np.savez(f, **arrays)      # append .npz to a str path
+        os.replace(tmp, path)          # atomic against concurrent writers
+    except OSError:
+        pass
+    return arrays
+
+
 def load_arrays(path_or_synthetic: Union[str, int], cfg: Config, device,
                 synthetic_seed: int = 0
                 ) -> Tuple[Dict[str, np.ndarray], SizeInfo]:
-    """path (reference JSON schema) or int N synthetic rooms -> padded
-    numpy arrays + the size table on `device`."""
+    """path (reference JSON schema, through the C++ packer) or int N
+    synthetic rooms (disk-cached) -> padded numpy arrays + the size table
+    on `device`."""
     if isinstance(path_or_synthetic, int):
-        rooms = synthetic.generate_rooms(path_or_synthetic,
-                                         seed=synthetic_seed)
+        arrays = _synthetic_arrays_cached(path_or_synthetic, synthetic_seed,
+                                          cfg.data.max_objects)
     else:
-        rooms = tensorize.load_rooms(path_or_synthetic)
-    arrays = tensorize.tensorize_rooms(rooms, cfg.data.max_objects)
+        arrays = tensorize.tensorize_file(path_or_synthetic,
+                                          cfg.data.max_objects)
     t, m, a = synthetic.default_size_table()
     size_info = SizeInfo(*(torch.as_tensor(x, device=device)
                            for x in (t, m, a)))

@@ -41,6 +41,7 @@ from sln_tpu_torch.data.batch import SceneBatch
 from sln_tpu_torch.data.vocab import NYU40_CLASSES
 from sln_tpu_torch.models.layers import fp32_accumulation
 from sln_tpu_torch.models.vae import Sg2ScVAE, reparameterize
+from sln_tpu_torch.ops.iou import layout_iou
 from sln_tpu_torch.parallel.mesh import (Mesh, all_reduce_flat, replicate,
                                          shard_batch)
 from sln_tpu_torch.render import assets, scene as scene_lib
@@ -377,6 +378,29 @@ def shard_refine_inputs(mesh: Mesh, batch: SceneBatch, model_idx,
     sharded = shard_batch((batch, model_idx, target_img, size_targets,
                            room_row_gt, z0), mesh)
     return (*sharded, replicate(model, mesh))
+
+
+def masked_layout_iou(boxes_pred: torch.Tensor, angles_pred: torch.Tensor,
+                      batch: SceneBatch) -> torch.Tensor:
+    """Mean rotated-cuboid IoU of a predicted layout (boxes (B, O, 6),
+    angle bins (B, O)) against the batch's GT, over the real non-room
+    objects: the reference's layout currency (testing/test_utils.py:33-40
+    get_iou_cuboid, xz polygon intersection x y overlap per object)."""
+    room_row = (batch.boxes * batch.room_mask[..., None]).sum(1)   # (B, 6)
+    ious = layout_iou(boxes_pred, angles_pred, batch.boxes,
+                      batch.angles.float(), room_row[:, 3:])       # (B, O)
+    m = (batch.obj_mask & ~batch.room_mask).float()
+    return (ious * m).sum() / m.sum().clamp(min=1.0)
+
+
+@torch.no_grad()
+def decoded_layout_iou(model: Sg2ScVAE, batch: SceneBatch,
+                       z: torch.Tensor) -> torch.Tensor:
+    """masked_layout_iou of the layout `model` decodes from z, each angle
+    its argmax bin, as the reference's artifact dumps take it
+    (test_render_refine.py:369-377)."""
+    boxes_pred, angle_lp = model.decode(z, batch)
+    return masked_layout_iou(boxes_pred, angle_lp.argmax(-1).float(), batch)
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """The port stands alone: sln_tpu_torch and chip_smoke.py import nothing
-of JAX, flax, optax or the JAX package, its Blender-side scripts nothing
-beyond the standard library, numpy, Blender's modules and the port, and
-the port's entry point runs on the card unless asked for the CPU."""
+of JAX, flax, optax, the JAX package or the root `tools` package, its
+Blender-side scripts nothing beyond the standard library, numpy, Blender's
+modules and the port, its native library builds from its own csrc/, and
+the port's entry points run on the card unless asked for the CPU."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "sln_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sln_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sln_tpu", "tools")
 
 
 def _port_sources():
@@ -102,6 +103,10 @@ def test_every_module_imports_with_jax_blocked():
     assert "sln_tpu_torch.render.blender.scene_spec" in names
     assert "sln_tpu_torch.render.preview" in names
     assert "sln_tpu_torch.parallel.mesh" in names
+    for module in ("native", "data.objio", "ops.iou",
+                   "tools.build_asset_bank", "tools.eval_refinement_quality",
+                   "tools.sweep_refinement"):
+        assert f"sln_tpu_torch.{module}" in names
 
 
 def test_parallel_modules_and_rank_worker_import_no_jax():
@@ -124,6 +129,56 @@ def test_parallel_modules_and_rank_worker_import_no_jax():
     import torch_dist_worker
 
     assert set(torch_dist_worker.BLOCKED) >= set(FORBIDDEN)
+
+
+def test_host_runtime_slice_imports_nothing_of_the_jax_package():
+    """The native binding, the .obj reader, the IoU, every port tool and
+    chip_smoke.py import nothing of JAX, the JAX package or the root
+    `tools` package (which holds the JAX package's tools)."""
+    paths = [PORT / "native.py", PORT / "data" / "objio.py",
+             PORT / "ops" / "iou.py", REPO / "chip_smoke.py",
+             *sorted((PORT / "tools").glob("*.py"))]
+    assert len(paths) >= 8
+    for path in paths:
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in FORBIDDEN]
+        assert not bad, (path.name, bad)
+
+
+def _code_strings(path):
+    """String constants of a source file other than docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_native_library_builds_from_the_ports_own_source():
+    """csrc/native.cpp is the port's own file (not a link) and includes
+    only standard headers; the build names no path under sln_tpu/: its
+    source, output and command lie in the port."""
+    from sln_tpu_torch import native
+
+    src = PORT / "csrc" / "native.cpp"
+    assert src.is_file() and not src.is_symlink()
+    includes = [ln for ln in src.read_text().splitlines()
+                if ln.startswith("#include")]
+    assert includes and all("<" in ln for ln in includes), includes
+    assert native.CSRC == PORT / "csrc"
+    assert native.BUILD_DIR == PORT / "_build"
+    cmd = native.build_command(native.library_path())
+    assert not [a for a in cmd if "sln_tpu/" in a or "sln_tpu" + os.sep
+                in a], cmd
+    assert not [c for c in _code_strings(PORT / "native.py")
+                if "sln_tpu/" in c or "cpp" in c.split("/")], \
+        _code_strings(PORT / "native.py")
 
 
 def test_blender_side_modules_import_only_what_blender_has():
@@ -167,6 +222,22 @@ def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path):
         entry.main(["--fine_tune", "--synthetic", "8",
                     "--allow_random_weights", "--test_dir", str(tmp_path)])
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("tool", ["eval_refinement_quality",
+                                  "sweep_refinement"])
+def test_refinement_tools_default_to_the_card(monkeypatch, tmp_path, tool):
+    import importlib
+
+    module = importlib.import_module(f"sln_tpu_torch.tools.{tool}")
+    assert module.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        module.main(["--output_dir", str(REPO / "artifacts"),
+                     "--checkpoint_name", "bench", "--rooms", "2"]
+                    + (["--out", str(tmp_path / "s.json"), "--rows", "0"]
+                       if tool == "sweep_refinement" else []))
+    assert not (tmp_path / "s.json").exists()
 
 
 def test_train_entry_point_defaults_to_the_card(monkeypatch, tmp_path):

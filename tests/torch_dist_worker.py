@@ -20,7 +20,7 @@ import sys
 from typing import Callable
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "sln_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "sln_tpu", "tools")
 
 
 def launch(world: int, job: dict, workdir) -> Callable[..., list]:
