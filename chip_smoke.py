@@ -8,6 +8,8 @@
                                            # generator's whole recipe
     python3 chip_smoke.py --parallel-only  # device, build, parallel
     python3 chip_smoke.py --layout-eval-only  # device, build, layout_eval
+    python3 chip_smoke.py --train-scan-only   # device, build, train_scan
+    python3 chip_smoke.py --tp-only        # device, build, tensor_parallel
 
 Phases, each printing a line as it ends:
   1. device   the card must be there (else this exits non-zero); prints
@@ -18,8 +20,10 @@ Phases, each printing a line as it ends:
               (cuobjdump -sass; printed where found, never a failure)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes: 8 synthetic rooms (seed 3) at
-              96 px, one room at 256 px, and a scene whose faces are all
-              invalid (every tile's chunk list is empty); the backward
+              96 px, one room at 256 px, a scene whose faces are all
+              invalid (every tile's chunk list is empty), and the dry run's
+              refine shape (sln_tpu_torch.dryrun.refine_setup: 4 rooms at
+              8 object slots, 32 px); the backward
               takes the forward kernel's residuals; forward and backward,
               each run twice on the same inputs, must give the same bits;
               and the culled kernels against the dense plain
@@ -63,6 +67,23 @@ Phases, each printing a line as it ends:
               committed checkpoint's, and the quality cell on the result
               (without the cached-posterior comparison: another model has
               another posterior), acc_pred >= 0.870 and l1_pred <= 0.1115
+  6b. train_scan
+              the device-resident train loop (train.loop.make_train_scan) at
+              the JAX bench's train_device settings (bench.py:527-560:
+              batch 256 of 4,096 synthetic rooms, seed 0, a fresh init at
+              the default width): its CUDA graph of the step for 60 steps
+              against 60 eager steps from the same init with the same
+              draws, the summed loss and every parameter, BatchNorm and
+              Adam tensor the same bits (else the differing tensors printed
+              and the JAX scan test's gates, total rtol 1e-5 and parameters
+              1e-6), state.step advanced by 60; a profiled window of 10
+              scan steps with 10 graph launches and no eager step between
+              them (host kernel launches per replay under 5 % of an eager
+              step's); scenes/s of the graph and of the eager loop (CUDA
+              events, best of two windows of 60 steps) and each one's
+              device busy share; the microbatched step (microbatch 128)
+              and --compute_dtype bfloat16, 10 steps each, held the same
+              way
   7. spade    SPADE shading on the card at full width (ngf 64, 256 px, nz
               256) from artifacts/spade_gan.ckpt, named explicitly so a
               missing file fails: its load; the generator on one held-out
@@ -155,6 +176,21 @@ Phases, each printing a line as it ends:
               both kernels launched on every rank, the launches added to the
               kernel line); sharded colorize of one room x 50 z on
               artifacts/spade_gan.ckpt (within 1e-3), imgs/s
+  11b. tensor_parallel
+              tensor parallelism and the multi-slice mesh: `python -m
+              sln_tpu_torch.dryrun` under torch.distributed.run on 4 ranks
+              (dp 2 x tp 2) and on 8 (adding 2 slices x 2 x 2), ranks
+              sharing the card over gloo (one NCCL rank per card where the
+              cards suffice): every variant's line, the refine's launches
+              added to the kernel line; then the parallel phase's worker
+              with --model-ranks 2 on 4 ranks (dp 2 x tp 2; with more
+              cards, one NCCL rank each): the recipe-width step at batch
+              256 from the committed weights, two steps against one
+              process on the same card at the parallel phase's gates
+              (losses and first gradient within the larger of 1e-5 and
+              PAR_FLOOR_FACTOR times the float32 floor, parameters
+              2.5e-3), each data group's shards and every rank's
+              replicated tensors the same bits, ms per step
   12. layout_eval
               the host runtime and the layout evaluation: the native
               library built by g++ from csrc/native.cpp (compiler and build
@@ -192,12 +228,12 @@ Phases, each printing a line as it ends:
               share, the top kernels by device time, the CUDA runtime calls,
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
-Then one JSON line of kernel records, the refine, sampling, train, spade,
-spade_train and culling lines, one line per bf16 group (bf16_train,
-bf16_sampling, bf16_refine, bf16_shading), the draw3d, parallel and
-layout_eval lines, the card's nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}. Any failed phase raises, so the script
-exits non-zero and prints no result. All outputs go to a temporary directory
+Then one JSON line of kernel records, the refine, sampling, train,
+train_scan, spade, spade_train and culling lines, one line per bf16 group
+(bf16_train, bf16_sampling, bf16_refine, bf16_shading), the draw3d,
+parallel, tensor_parallel and layout_eval lines, the card's nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}. Any failed phase
+raises, so the script exits non-zero and prints no result. All outputs go to a temporary directory
 that is removed at the end.
 """
 
@@ -222,12 +258,13 @@ import time
 import numpy as np
 import torch
 
-from sln_tpu_torch import kernels, test as entry
+from sln_tpu_torch import dryrun, kernels, test as entry
 from sln_tpu_torch.config import TrainConfig, default_config
 from sln_tpu_torch.data.vocab import NYU40_CLASSES
 from sln_tpu_torch.data.augment import build_graphs, draw_graph_randomness
 from sln_tpu_torch.models.vae import reparameterize
 from sln_tpu_torch.parallel.mesh import global_from_host_shards, make_mesh
+from sln_tpu_torch.parallel.sharding import gather_params, partition_specs
 from sln_tpu_torch.render import assets, blender_bridge, image_io, preview
 from sln_tpu_torch.render import rasterizer as raster
 from sln_tpu_torch.render import rasterizer_cuda as rc
@@ -2292,8 +2329,10 @@ def par_train(device, mesh=None, swap: bool = False) -> dict:
     """PAR_STEPS train steps at the recipe's width on the first global
     batch (this rank's rows of it under a mesh) from the committed
     checkpoint's weights (fresh Adam), with the steps' own draws; then
-    scenes/s (CUDA events, best of two windows of 60 steps; 10 over gloo)
-    and a profile of three steps. swap: one process on the same rows and draws with the
+    scenes/s (CUDA events, best of two windows of 60 steps; 5 over gloo)
+    and a profile of three steps. Under a mesh with a model axis the state
+    is sharded over it (shard_state) and the gradient and parameters
+    returned are gathered whole. swap: one process on the same rows and draws with the
     batch's halves swapped, the float32 floor of the gates (the same sums
     in another order)."""
     cfg = train_cli.config_from_args(train_cli.parse_args(RECIPE))
@@ -2301,14 +2340,26 @@ def par_train(device, mesh=None, swap: bool = False) -> dict:
                                            synthetic_seed=42)
     restored = train_ckpt.load_checkpoint(train_ckpt.latest_path(
         CHECKPOINT.output_dir, CHECKPOINT.checkpoint_name))
-    rank, world = (mesh.rank, mesh.world_size) if mesh else (0, 1)
+    rank, world = (mesh.data_index, mesh.data_size) if mesh else (0, 1)
     half = PAR_BATCH // 2
     order = (np.r_[half:PAR_BATCH, :half] if swap else np.arange(PAR_BATCH))
     rows = order[train_loop.shard_rows(PAR_BATCH, 0, rank, world)]
     raw = train_loop.stage_arrays({k: v[rows] for k, v in arrays.items()},
                                   device)
     state = train_loop.create_state(cfg, device, restored)
+    tp = mesh is not None and mesh.num_model > 1
+    if tp:
+        train_loop.shard_state(state, mesh)
     step = train_loop.make_train_step(state, cfg, size_info, mesh=mesh)
+    names = [n for n, _ in state.model.named_parameters()]
+
+    def flat(tensors):
+        """The full tensors (gathered over the model group under tensor
+        parallelism), flattened in parameter order."""
+        named = dict(zip(names, tensors))
+        if tp:
+            named = gather_params(state.model, mesh, named)
+        return torch.cat([named[n].reshape(-1) for n in names]).cpu()
 
     def swapped_draws():
         """The step's own draws (loop.py global_draws), rows reordered."""
@@ -2327,21 +2378,31 @@ def par_train(device, mesh=None, swap: bool = False) -> dict:
         out = step(raw, swapped_draws() if swap else None)
         losses.append({k: float(v) for k, v in out.items()})
         if grads is None:
-            grads = torch.cat([p.grad.reshape(-1)
-                               for p in state.model.parameters()]).cpu()
-    params = torch.cat([p.detach().reshape(-1)
-                        for p in state.model.parameters()]).cpu()
+            grads = flat([p.grad for p in state.model.parameters()])
+    params = flat([p.detach() for p in state.model.parameters()])
     out = {"losses": losses, "grads": grads, "params": params,
-           "digest": state_digest(state.state_tensors())}
+           "digest": state_digest(state.state_tensors()),
+           "replicated_digest": state_digest(replicated_tensors(state))}
     if not swap:
-        # ranks sharing a card over gloo take ~0.4 s a step (PERF.md §6):
-        # shorter windows there
-        reps = 10 if mesh is not None and mesh.backend == "gloo" else 60
+        # ranks sharing a card over gloo take 0.4 s (data parallel) to 1.7 s
+        # (tensor parallel) a step (PERF.md §6): shorter windows there
+        reps = 5 if mesh is not None and mesh.backend == "gloo" else 60
         windows = [event_ms(lambda: step(raw), reps, 0) for _ in range(2)]
         out.update(step_ms=windows,
                    scenes_per_s=PAR_BATCH / (min(windows) / 1e3),
                    profile=collective_profile(lambda: step(raw), 3))
     return out
+
+
+def replicated_tensors(state) -> list:
+    """The state tensors that tensor parallelism leaves whole: parameters,
+    BatchNorm buffers and Adam state of every unsplit name."""
+    specs = partition_specs(state.model)
+    named = dict(state.model.named_parameters())
+    return ([t for n, t in state.model.state_dict().items()
+             if specs[n] is None]
+            + [v for n, p in named.items() if specs[n] is None
+               for v in state.optimizer.state[p].values()])
 
 
 def train_deviation(a: dict, b: dict) -> tuple:
@@ -2430,24 +2491,118 @@ def par_colorize(device, mesh=None) -> dict:
     return {"imgs": imgs, "s_per_room": s, "imgs_per_s": PAR_Z / s}
 
 
-def parallel_worker(out_dir: str) -> None:
-    """One rank of the parallel phase (under torch.distributed.run): the
-    DP train step, the sharded sampler, refine and colorize; its results
-    to out_dir/rank<r>.pt."""
+def parallel_worker(out_dir: str, num_model: int = 1) -> None:
+    """One rank under torch.distributed.run, on a mesh of num_model model
+    ranks: the train step (par_train), and with num_model 1 (the parallel
+    phase) the sharded sampler, refine and colorize too; its results to
+    out_dir/rank<r>.pt."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh = make_mesh(device="cuda")
+    mesh = make_mesh(num_model=num_model, device="cuda")
     try:
         kernels.load()
-        out = {"rank": mesh.rank, "world": mesh.world_size,
-               "backend": mesh.backend, "device": str(mesh.device),
-               "train": par_train(mesh.device, mesh),
-               "sampler": par_sampler(mesh.device, mesh),
-               "refine": par_refine(mesh.device, mesh),
-               "colorize": par_colorize(mesh.device, mesh)}
+        out = {"rank": mesh.rank, "coords": mesh.coords,
+               "world": mesh.world_size, "backend": mesh.backend,
+               "device": str(mesh.device),
+               "train": par_train(mesh.device, mesh)}
+        if num_model == 1:
+            out.update(sampler=par_sampler(mesh.device, mesh),
+                       refine=par_refine(mesh.device, mesh),
+                       colorize=par_colorize(mesh.device, mesh))
         torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     finally:
         mesh.close()
+
+
+def torchrun(nproc: int, args: list, timeout: int = 600):
+    """torch.distributed.run of `args` on nproc ranks from the repo's root:
+    (stdout, seconds); raises with the log on a failure."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} on {nproc} ranks exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def launch_workers(out_dir: str, world: int, num_model: int,
+                   timeout: int = 900) -> tuple:
+    """parallel_worker on `world` ranks: (each rank's results, seconds)."""
+    os.makedirs(out_dir)
+    log, seconds = torchrun(world, [os.path.abspath(__file__),
+                                    "--parallel-worker", out_dir,
+                                    "--model-ranks", str(num_model)],
+                            timeout)
+    for line in log.splitlines():
+        if line.startswith("| "):
+            print(f"  {line}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(world)]
+    print(f"  {world} ranks ({ranks[0]['backend']}; devices "
+          f"{[r['device'] for r in ranks]}) in {seconds:.1f} s", flush=True)
+    return ranks, seconds
+
+
+def train_step_gates(what: str, ranks: list, ref: dict, floor: tuple,
+                     smi: str) -> dict:
+    """The ranks' train step (par_train) against the single process `ref`
+    at PAR_GATES, the loss and gradient gates raised to PAR_FLOOR_FACTOR
+    times the float32 floor; every rank of a data group the same bits in
+    its state, every rank the same bits in the replicated tensors. Prints
+    the check and the timing; raises on a miss; returns the numbers."""
+    world, g = len(ranks), PAR_GATES
+    tr = ranks[0]["train"]
+    loss_err, grad_rel, param_err = train_deviation(tr, ref)
+    loss_gate = max(g["loss_rtol"], PAR_FLOOR_FACTOR * floor[0])
+    grad_gate = max(g["grad_rel"], PAR_FLOOR_FACTOR * floor[1])
+    by_model = {}
+    for r in ranks:
+        by_model.setdefault(r["coords"][2], set()).add(r["train"]["digest"])
+    shards_same = all(len(d) == 1 for d in by_model.values())
+    repl_same = len({r["train"]["replicated_digest"] for r in ranks}) == 1
+    print(f"  {what} ({ranks[0]['backend']}), batch {PAR_BATCH}, "
+          f"{PAR_STEPS} steps from the committed weights against one "
+          f"process: losses max rel {loss_err:.3e} (gate {loss_gate:.3e}), "
+          f"first gradient rel norm {grad_rel:.3e} (gate {grad_gate:.3e}), "
+          f"parameters max abs {param_err:.3e} (gate {g['param_atol']}); "
+          f"the float32 floor (one process, the halves swapped): losses "
+          f"{floor[0]:.3e}, gradient {floor[1]:.3e}, parameters "
+          f"{floor[2]:.3e}; each data group's state "
+          f"{'bitwise equal' if shards_same else 'DIFFERS'}, the replicated "
+          f"tensors {'bitwise equal' if repl_same else 'DIFFER'} on every "
+          f"rank", flush=True)
+    prof = tr["profile"]
+    print(f"  train scenes/s at batch {PAR_BATCH}: 1 process "
+          f"{ref['scenes_per_s']:.0f} ({ref['step_ms'][0]:.3f}, "
+          f"{ref['step_ms'][1]:.3f} ms), {world} ranks "
+          f"{tr['scenes_per_s']:.0f} ({tr['step_ms'][0]:.3f}, "
+          f"{tr['step_ms'][1]:.3f} ms); all-reduce per step "
+          f"{prof['nccl_ms_per_step']:.3f} ms on the device (each NCCL "
+          f"kernel's time includes its wait for the other ranks) in "
+          f"{prof['nccl_kernels_per_step']:.0f} NCCL kernels "
+          f"({prof['allreduce_calls_per_step']:.0f} all-reduce calls), "
+          f"device busy {prof['busy_ms_per_step']:.3f} ms per step "
+          f"(profile of 3 steps), on {smi}", flush=True)
+    if (loss_err > loss_gate or grad_rel > grad_gate
+            or param_err > g["param_atol"] or not shards_same
+            or not repl_same):
+        raise AssertionError(f"the {what} misses its gates")
+    return {"world": world, "backend": ranks[0]["backend"],
+            "loss_max_rel": loss_err, "grad_rel_norm": grad_rel,
+            "param_max_abs": param_err,
+            "floor": {"loss_max_rel": floor[0], "grad_rel_norm": floor[1],
+                      "param_max_abs": floor[2]},
+            "gates": {"loss": loss_gate, "grad": grad_gate,
+                      "param": g["param_atol"]},
+            "scenes_per_s": {"1": ref["scenes_per_s"],
+                             str(world): tr["scenes_per_s"]},
+            "step_ms": {"1": ref["step_ms"], str(world): tr["step_ms"]},
+            "profile": {"1": ref["profile"], str(world): prof}}
 
 
 def one_rank_trainer(tmp: str, device) -> dict:
@@ -2507,62 +2662,13 @@ def parallel_phase(tmp: str, device, smi: str) -> dict:
         print(f"  single-process references in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-        out_dir = os.path.join(tmp, "parallel")
-        os.makedirs(out_dir)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node", str(world), os.path.abspath(__file__),
-               "--parallel-worker", out_dir]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        launch_s = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            if line.startswith("| data parallel"):
-                print(f"  {line}")
-        if proc.returncode != 0:
-            raise AssertionError(f"{world} ranks exited {proc.returncode}:"
-                                 f"\n{proc.stdout[-3000:]}\n"
-                                 f"{proc.stderr[-6000:]}")
-        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                            weights_only=False) for r in range(world)]
+        ranks, launch_s = launch_workers(os.path.join(tmp, "parallel"),
+                                         world, 1)
         backend = ranks[0]["backend"]
-        print(f"  {world} ranks ({backend}; devices "
-              f"{[r['device'] for r in ranks]}) in {launch_s:.1f} s",
-              flush=True)
         g = PAR_GATES
-
-        # the DP train step
-        tr, rt = ranks[0]["train"], ref["train"]
-        loss_err, grad_rel, param_err = train_deviation(tr, rt)
-        loss_gate = max(g["loss_rtol"], PAR_FLOOR_FACTOR * floor[0])
-        grad_gate = max(g["grad_rel"], PAR_FLOOR_FACTOR * floor[1])
-        digests = {r["train"]["digest"] for r in ranks}
-        print(f"  DP train step, batch {PAR_BATCH} ({PAR_BATCH // world} "
-              f"rows a rank), {PAR_STEPS} steps from the committed weights "
-              f"against one process: losses max rel {loss_err:.3e} (gate "
-              f"{loss_gate:.3e}), first gradient rel norm {grad_rel:.3e} "
-              f"(gate {grad_gate:.3e}), parameters max abs {param_err:.3e} "
-              f"(gate {g['param_atol']}); the float32 floor (one process, "
-              f"the halves swapped): losses {floor[0]:.3e}, gradient "
-              f"{floor[1]:.3e}, parameters {floor[2]:.3e}; {world} replicas'"
-              f" state {'bitwise equal' if len(digests) == 1 else 'DIFFER'}",
-              flush=True)
-        if (loss_err > loss_gate or grad_rel > grad_gate
-                or param_err > g["param_atol"] or len(digests) != 1):
-            raise AssertionError("the DP train step misses its gates")
-        prof = tr["profile"]
-        print(f"  train scenes/s at batch {PAR_BATCH}: 1 process "
-              f"{rt['scenes_per_s']:.0f} ({rt['step_ms'][0]:.3f}, "
-              f"{rt['step_ms'][1]:.3f} ms), {world} ranks "
-              f"{tr['scenes_per_s']:.0f} ({tr['step_ms'][0]:.3f}, "
-              f"{tr['step_ms'][1]:.3f} ms); all-reduce per step "
-              f"{prof['nccl_ms_per_step']:.3f} ms on the device (each NCCL "
-              f"kernel's time includes its wait for the other ranks) in "
-              f"{prof['nccl_kernels_per_step']:.0f} NCCL kernels "
-              f"({prof['allreduce_calls_per_step']:.0f} all-reduce calls), "
-              f"device busy {prof['busy_ms_per_step']:.3f} ms per step "
-              f"(profile of 3 steps), on {smi}", flush=True)
+        train = train_step_gates(
+            f"DP train step ({PAR_BATCH // world} rows a rank)", ranks,
+            ref["train"], floor, smi)
 
         # the sharded sampler
         sp, rs = ranks[0]["sampler"], ref["sampler"]
@@ -2618,17 +2724,7 @@ def parallel_phase(tmp: str, device, smi: str) -> dict:
 
         result.update({
             "world": world, "backend": backend, "launch_s": launch_s,
-            "train": {"loss_max_rel": loss_err, "grad_rel_norm": grad_rel,
-                      "param_max_abs": param_err,
-                      "floor": {"loss_max_rel": floor[0],
-                                "grad_rel_norm": floor[1],
-                                "param_max_abs": floor[2]},
-                      "gates": {"loss": loss_gate, "grad": grad_gate},
-                      "scenes_per_s": {"1": rt["scenes_per_s"],
-                                       str(world): tr["scenes_per_s"]},
-                      "step_ms": {"1": rt["step_ms"],
-                                  str(world): tr["step_ms"]},
-                      "profile": {"1": rt["profile"], str(world): prof}},
+            "train": train,
             "sampler": {"boxes_max_abs": box_err, "angle_flips": flips,
                         "valid_objects": n_obj,
                         "layouts_per_s": {"1": rs["layouts_per_s"],
@@ -2646,6 +2742,231 @@ def parallel_phase(tmp: str, device, smi: str) -> dict:
             "gates": g, "card": smi})
     fwd = sum(f for f, _ in launches)
     bwd = sum(b for _, b in launches)
+    return result, (fwd, bwd), (ref["train"], floor)
+
+
+# ---------------------------------------------------------------------------
+# train_scan: the device-resident train loop (make_train_scan)
+# ---------------------------------------------------------------------------
+# bench.py:527-560 (the JAX bench's train_device cell): batch 256 of 4,096
+# synthetic rooms (seed 0), a fresh init at the default (committed) width,
+# 60 steps; the microbatched and bf16 variants 10 steps each
+SCAN_BATCH = 256
+SCAN_STEPS = 60
+SCAN_VARIANT_STEPS = 10
+SCAN_PROFILED = 10
+# where the graph cannot give the eager steps' bits: the JAX scan test's
+# gates (tests/test_train.py:147-155)
+SCAN_GATES = {"total_rtol": 1e-5, "param_atol": 1e-6}
+SCAN_VARIANTS = {"fp32": {}, "microbatch": {"microbatch": 128},
+                 "bf16": {"compute_dtype": "bfloat16"}}
+
+
+def scan_setup(device, variant: str):
+    """(cfg, size_info, raw): the bench's configuration in `variant` and its
+    first batch (np.random.default_rng(0)) staged on the card."""
+    over = SCAN_VARIANTS[variant]
+    cfg = default_config()
+    cfg = cfg.replace(
+        train=dataclasses.replace(cfg.train, batch_size=SCAN_BATCH,
+                                  microbatch=over.get("microbatch", 0)),
+        model=dataclasses.replace(
+            cfg.model, compute_dtype=over.get("compute_dtype", "float32")))
+    arrays, size_info = common.load_arrays(4096, cfg, device,
+                                           synthetic_seed=0)
+    idx = next(train_loop.batch_indices(len(arrays["objs"]), SCAN_BATCH,
+                                        np.random.default_rng(0)))
+    raw = train_loop.stage_arrays({k: v[idx] for k, v in arrays.items()},
+                                  device)
+    return cfg, size_info, raw
+
+
+def state_names(state) -> list:
+    """Names of state.state_tensors(), in its order."""
+    params = [n for n, _ in state.model.named_parameters()]
+    return (params + [n for n, _ in state.model.named_buffers()]
+            + [f"adam {k} {n}" for n, p in zip(params,
+                                                state.model.parameters())
+               for k in state.optimizer.state[p]])
+
+
+def window_profile(fn) -> dict:
+    """torch.profiler over one call of fn: wall ms, device busy ms and
+    share, CUDA graph launches and kernel launches from the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    busy_ms = sum(dev_us(e) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in host_keys) / 1e3
+
+    def count(name):
+        return sum(e.count for e in events if e.key == name)
+
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "graph_launches": count("cudaGraphLaunch"),
+            "kernel_launches": count("cudaLaunchKernel")
+            + count("cudaLaunchKernelExC")}
+
+
+def graph_against_eager(device, variant: str, n: int) -> dict:
+    """make_train_scan's graph for n steps against n eager steps from the
+    same init with the same draws: the summed loss and every parameter,
+    BatchNorm and Adam tensor, bit for bit or (reported) within
+    SCAN_GATES; state.step advanced by n. Returns the check's numbers and
+    (for timing) the scan, the eager step and the raw batch."""
+    cfg, size_info, raw = scan_setup(device, variant)
+    graphed = train_loop.create_state(cfg, device)
+    run = train_loop.make_train_scan(graphed, cfg, size_info)
+    t0 = time.perf_counter()
+    total_g = run(raw, n)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    eager = train_loop.create_state(cfg, device)
+    step = train_loop.make_train_step(eager, cfg, size_info)
+    total_e = torch.zeros((), device=device)
+    for _ in range(n):
+        total_e = total_e + step(raw)["total_loss"]
+    if graphed.step != n or eager.step != n:
+        raise AssertionError(f"state.step {graphed.step} after a scan of {n}")
+    differ = {}
+    for name, a, b in zip(state_names(graphed), graphed.state_tensors(),
+                          eager.state_tensors()):
+        if not torch.equal(a, b):
+            d = (a.double() - b.double()).abs().max()
+            differ[name] = float(d)
+    bitwise = torch.equal(total_g, total_e) and not differ
+    worst10 = dict(sorted(differ.items(), key=lambda kv: -kv[1])[:10])
+    tot_rel = abs(float(total_g) - float(total_e)) / abs(float(total_e))
+    print(f"  train scan {variant}, {n} steps at batch {SCAN_BATCH}: the "
+          f"graph's summed loss {float(total_g):.9g}, the eager loop's "
+          f"{float(total_e):.9g}; {'the same bits in the total and in all '
+          if bitwise else 'DIFFERENT bits: '}"
+          f"{len(graphed.state_tensors()) - len(differ)} of "
+          f"{len(graphed.state_tensors())} state tensors equal"
+          f"{'' if bitwise else ': largest ' + json.dumps(worst10)} (first "
+          f"call "
+          f"with capture {first_s:.2f} s)", flush=True)
+    if not bitwise:
+        params = len(list(graphed.model.parameters()))
+        worst = max([v for k, v in differ.items()
+                     if k in state_names(graphed)[:params]] or [0.0])
+        if (tot_rel > SCAN_GATES["total_rtol"]
+                or worst > SCAN_GATES["param_atol"]):
+            raise AssertionError(f"the train scan's graph misses the JAX "
+                                 f"scan gates: total rel {tot_rel:.3e}, "
+                                 f"parameters max abs {worst:.3e}")
+    return {"total": float(total_g), "eager_total": float(total_e),
+            "bitwise": bitwise, "total_rel": tot_rel, "differ": differ,
+            "first_call_s": first_s}, (run, step, raw)
+
+
+def train_scan_phase(device, smi: str) -> dict:
+    """The train_scan phase: returns its numbers."""
+    with phase("train_scan"):
+        result, (run, step, raw) = graph_against_eager(device, "fp32",
+                                                       SCAN_STEPS)
+        # the graph replayed: n cudaGraphLaunch and no eager step between
+        # them (an eager step launches thousands of kernels)
+        prof_g = window_profile(lambda: run(raw, SCAN_PROFILED))
+        prof_e = window_profile(
+            lambda: [step(raw) for _ in range(SCAN_PROFILED)])
+        per_replay = prof_g["kernel_launches"] / SCAN_PROFILED
+        eager_per_step = prof_e["kernel_launches"] / SCAN_PROFILED
+        print(f"  profiled window of {SCAN_PROFILED} scan steps: "
+              f"{prof_g['graph_launches']} graph launches, "
+              f"{per_replay:.1f} kernel launches from the host per replay "
+              f"(an eager step: {eager_per_step:.0f}); device busy "
+              f"{prof_g['busy_share']:.1%} of {prof_g['wall_ms']:.3f} ms "
+              f"(eager: {prof_e['busy_share']:.1%} of "
+              f"{prof_e['wall_ms']:.3f} ms)", flush=True)
+        if (prof_g["graph_launches"] != SCAN_PROFILED
+                or per_replay > 0.05 * eager_per_step):
+            raise AssertionError("the scan's window is not graph replays")
+        windows_g = [event_ms(lambda: run(raw, SCAN_STEPS), 1, 0)
+                     / SCAN_STEPS for _ in range(2)]
+        windows_e = [event_ms(lambda: step(raw), SCAN_STEPS, 0)
+                     for _ in range(2)]
+        rate_g = SCAN_BATCH / (min(windows_g) / 1e3)
+        rate_e = SCAN_BATCH / (min(windows_e) / 1e3)
+        print(f"  train step at batch {SCAN_BATCH}: graph {windows_g[0]:.3f},"
+              f" {windows_g[1]:.3f} ms = {rate_g:.0f} scenes/s; eager "
+              f"{windows_e[0]:.3f}, {windows_e[1]:.3f} ms = {rate_e:.0f} "
+              f"scenes/s (CUDA events, {SCAN_STEPS} steps a window), on "
+              f"{smi}", flush=True)
+        result.update(profile={"graph": prof_g, "eager": prof_e},
+                      step_ms={"graph": windows_g, "eager": windows_e},
+                      scenes_per_s={"graph": rate_g, "eager": rate_e})
+        del run, step, raw
+        torch.cuda.empty_cache()
+        for variant in ("microbatch", "bf16"):
+            result[variant], _ = graph_against_eager(device, variant,
+                                                     SCAN_VARIANT_STEPS)
+            torch.cuda.empty_cache()
+        result["card"] = smi
+    return result
+
+
+# ---------------------------------------------------------------------------
+# tensor_parallel: the dp x tp mesh, the multi-slice mesh and the dry run
+# ---------------------------------------------------------------------------
+TP_DRYRUN_RANKS = (4, 8)    # dp 2 x tp 2; 2 slices x 2 x 2
+TP_RANKS = 4                # the recipe-width step: dp 2 x tp 2
+
+
+def tensor_parallel_phase(tmp: str, device, smi: str, ref=None,
+                          floor=None) -> tuple:
+    """The tensor_parallel phase: returns its numbers and the dry runs'
+    rasterizer launches (fwd, bwd), summed over their ranks. ref and floor
+    are the parallel phase's single-process train run and float32 floor
+    (par_train, train_deviation), measured here when not given."""
+    with phase("tensor_parallel"):
+        result, fwd, bwd = {"dryrun": {}}, 0, 0
+        for n in TP_DRYRUN_RANKS:
+            log, seconds = torchrun(n, ["-m", "sln_tpu_torch.dryrun"])
+            lines = [ln for ln in log.splitlines()
+                     if ln.startswith(("mesh:", "dryrun_", "| "))]
+            for line in lines:
+                print(f"  [{n} ranks] {line}")
+            got = json.loads(next(ln for ln in log.splitlines()
+                                  if ln.startswith('{"dryrun"')))["dryrun"]
+            want = 5 if n >= 8 else 4
+            if sum(ln.startswith("dryrun_") for ln in lines) != want:
+                raise AssertionError(f"the dry run on {n} ranks printed "
+                                     f"{lines}")
+            f, b = got["serving"]["rasterizer_launches"]
+            if not (f > 0 and b > 0):
+                raise AssertionError(f"the dry run's refine launched fwd {f}"
+                                     f", bwd {b}")
+            fwd, bwd = fwd + f, bwd + b
+            got["seconds"] = seconds
+            result["dryrun"][str(n)] = got
+            print(f"  dry run on {n} ranks in {seconds:.1f} s; rasterizer "
+                  f"launches fwd {f}, bwd {b}", flush=True)
+
+        cards = torch.cuda.device_count()
+        world = cards if cards > 1 and cards % 2 == 0 else TP_RANKS
+        if ref is None:
+            ref = par_train(device)
+            floor = train_deviation(par_train(device, swap=True), ref)
+            torch.cuda.empty_cache()
+        ranks, seconds = launch_workers(
+            os.path.join(tmp, "tensor_parallel"), world, 2)
+        result["step"] = train_step_gates(
+            f"dp x tp train step ({world // 2} data x 2 model ranks)",
+            ranks, ref, floor, smi)
+        result["step"]["launch_s"] = seconds
+        result["card"] = smi
     return result, (fwd, bwd)
 
 
@@ -3075,17 +3396,25 @@ def main() -> None:
                     help="run the device, build and parallel phases")
     ap.add_argument("--layout-eval-only", action="store_true",
                     help="run the device, build and layout_eval phases")
+    ap.add_argument("--train-scan-only", action="store_true",
+                    help="run the device, build and train_scan phases")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="run the device, build and tensor_parallel phases")
     ap.add_argument("--parallel-worker", metavar="DIR",
-                    help="one rank of the parallel phase (the phase starts "
-                         "the ranks with torch.distributed.run)")
+                    help="one rank of the parallel or tensor_parallel "
+                         "phase (the phase starts the ranks with "
+                         "torch.distributed.run)")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="the worker's model ranks (tensor_parallel: 2)")
     args = ap.parse_args()
     if args.parallel_worker:
-        parallel_worker(args.parallel_worker)
+        parallel_worker(args.parallel_worker, args.model_ranks)
         return
     tmp = tempfile.mkdtemp(prefix="sln_chip_smoke_")
     try:
         run(tmp, args.kernels_only, args.train_recipe, args.spade_recipe,
-            args.parallel_only, args.layout_eval_only)
+            args.parallel_only, args.layout_eval_only, args.train_scan_only,
+            args.tp_only)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3099,7 +3428,8 @@ def print_ok() -> None:
 
 def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
         spade_recipe: bool = False, parallel_only: bool = False,
-        layout_only: bool = False) -> None:
+        layout_only: bool = False, scan_only: bool = False,
+        tp_only: bool = False) -> None:
     with phase("device"):
         if not torch.cuda.is_available():
             raise RuntimeError("torch.cuda.is_available() is False: "
@@ -3133,13 +3463,22 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
             print(f"  {name} inner loop (SASS): {json.dumps(counts_)}")
 
     if parallel_only:
-        parallel, _ = parallel_phase(tmp, device, smi)
+        parallel, *_ = parallel_phase(tmp, device, smi)
         print(json.dumps({"parallel": parallel}))
         print_ok()
         return
     if layout_only:
         print(json.dumps({"layout_eval": layout_eval_phase(tmp, device,
                                                            smi)}))
+        print_ok()
+        return
+    if scan_only:
+        print(json.dumps({"train_scan": train_scan_phase(device, smi)}))
+        print_ok()
+        return
+    if tp_only:
+        tensor_par, _ = tensor_parallel_phase(tmp, device, smi)
+        print(json.dumps({"tensor_parallel": tensor_par}))
         print_ok()
         return
 
@@ -3170,6 +3509,14 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
             raise AssertionError("the all-invalid scene has active chunks")
         errs.append(compare_kernels("96px_edge_cases", edge, 96, rcfg96,
                                     gen))
+        # the dry runs' sharded refine: 8 object slots at 32 px, the rooms
+        # of its widest data group (each rank renders one of them)
+        dcfg, dbatch, dbank, dinputs = dryrun.refine_setup(
+            device, max(TP_DRYRUN_RANKS) // 2)
+        drcfg = refine.refine_render_config(dcfg)
+        errs.append(compare_kernels(
+            "32px_dryrun", packed_scene(dbatch, dinputs[0], dbank, drcfg),
+            32, drcfg, gen))
         err_fwd = max(e[0] for e in errs)
         err_bwd = max(e[1] for e in errs)
         culling = culled_against_dense(cfg, device)
@@ -3299,6 +3646,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
 
     quality = sampling_phase(cfg, tmp, device, smi)
     training = train_phase(tmp, device, smi, recipe)
+    scan = train_scan_phase(device, smi)
     shading = spade_phase(cfg, tmp, device, smi)
     launches["fwd"] += shading["fwd_launches"]
     spade_training = spade_train_phase(cfg, tmp, device, smi, spade_recipe)
@@ -3353,9 +3701,14 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     launches["fwd"] += (drawing["fwd_launches"]
                         + drawing["fine_tune_launches"][0])
     launches["bwd"] += drawing["fine_tune_launches"][1]
-    parallel, (par_fwd, par_bwd) = parallel_phase(tmp, device, smi)
+    parallel, (par_fwd, par_bwd), (par_ref, par_floor) = parallel_phase(
+        tmp, device, smi)
     launches["fwd"] += par_fwd
     launches["bwd"] += par_bwd
+    tensor_par, (tp_fwd, tp_bwd) = tensor_parallel_phase(
+        tmp, device, smi, par_ref, par_floor)
+    launches["fwd"] += tp_fwd
+    launches["bwd"] += tp_bwd
     layout = layout_eval_phase(tmp, device, smi)
     launches["fwd"] += layout["launches"][0]
     launches["bwd"] += layout["launches"][1]
@@ -3384,6 +3737,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
         "serving": histories["serving 8 rooms 96px"][[0, -1]].tolist()}}))
     print(json.dumps({"sampling": quality}))
     print(json.dumps({"train": training}))
+    print(json.dumps({"train_scan": scan}))
     print(json.dumps({"spade": shading}))
     print(json.dumps({"spade_train": spade_training}))
     print(json.dumps({"culling": culling}))
@@ -3391,6 +3745,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
         print(json.dumps({f"bf16_{group}": numbers}))
     print(json.dumps({"draw3d": drawing}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"tensor_parallel": tensor_par}))
     print(json.dumps({"layout_eval": layout}))
     print_ok()
 

@@ -18,7 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sln_tpu_torch.parallel.mesh import all_reduce_sum_grad
+from sln_tpu_torch.parallel.mesh import (all_reduce_sum_grad, copy_to_model,
+                                         gather_from_model,
+                                         reduce_from_model)
 
 
 @contextlib.contextmanager
@@ -59,10 +61,13 @@ class MaskedBatchNorm(nn.Module):
     output takes x's dtype (the JAX module's layers.py:70).
 
     `mesh` (set_mesh), when it has a process group: train mode takes the
-    statistics over the valid rows of every rank, as the JAX module does
-    over a sharded batch (the sums and the count all-reduced through
-    autograd, so the backward sees the global statistics too), and the
-    running buffers update from them, the same on every rank."""
+    statistics over the valid rows of every rank of the data group, as the
+    JAX module does over a sharded batch (the sums and the count
+    all-reduced through autograd, so the backward sees the global
+    statistics too), and the running buffers update from them, the same
+    on every rank. Under tensor parallelism a BatchNorm after a
+    column-parallel Linear holds its shard of the features, and its
+    statistics still sum over the data group only."""
 
     mesh = None
 
@@ -139,7 +144,19 @@ class MLP(nn.Sequential):
     `dtype` is the compute dtype, as flax's Dense(dtype=...): each Linear
     casts its input and its float32 weight and bias to it (`linear`), so
     the activations come out in `dtype` while the parameters stay
-    float32."""
+    float32.
+
+    `model_mesh` (set by parallel.sharding.shard_params, which keeps this
+    rank's shards of the weights): Megatron tensor parallelism over the
+    mesh's model group. The first Linear is column-parallel (its input's
+    gradient summed over the model group, Megatron's f), the BatchNorm
+    after it runs on the local features, and the second Linear is
+    row-parallel (its partial products summed over the model group,
+    Megatron's g, and its bias added once after the sum). A one-stage MLP
+    (a column-parallel Linear alone) all-gathers its output's features.
+    Without it the MLP is the plain one."""
+
+    model_mesh = None
 
     def __init__(self, dims: Sequence[int], batch_norm: str = "none",
                  final_plain: bool = False,
@@ -161,12 +178,23 @@ class MLP(nn.Sequential):
                 nn.init.zeros_(layer.bias)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
+        dt, tp = self.dtype, self.model_mesh
+        if tp is not None:
+            x = copy_to_model(x, tp)
+        stage = 0
         for layer in self:
             if isinstance(layer, nn.Linear):
-                x = linear(x, layer.weight, layer.bias, dt)
+                if tp is not None and stage == 1:
+                    x = reduce_from_model(linear(x, layer.weight, None, dt),
+                                          tp)
+                    x = x + layer.bias.to(dt)
+                else:
+                    x = linear(x, layer.weight, layer.bias, dt)
+                stage += 1
             elif isinstance(layer, MaskedBatchNorm):
                 x = layer(x, mask)
             else:
                 x = layer(x)
+        if tp is not None and stage == 1:
+            x = gather_from_model(x, tp)
         return x

@@ -137,7 +137,7 @@ def main(argv=None):
     alone prints, writes metrics.jsonl and the checkpoint trio."""
     args = parse_args(argv)
     cfg = config_from_args(args)
-    mesh = make_mesh(args.num_data_shards, args.device)
+    mesh = make_mesh(args.num_data_shards, device=args.device)
     try:
         return _train(args, cfg, mesh)
     finally:
@@ -149,8 +149,8 @@ def _train(args, cfg: Config, mesh: Mesh):
     device = mesh.device
     lead = mesh.rank == 0
     say = print if lead else _quiet
-    rows = loop.shard_rows(tc.batch_size, tc.microbatch, mesh.rank,
-                           mesh.world_size)
+    rows = loop.shard_rows(tc.batch_size, tc.microbatch, mesh.data_index,
+                           mesh.data_size)
     say("| options")
     for k, v in sorted(vars(args).items()):
         say(f"{k}: {v}")

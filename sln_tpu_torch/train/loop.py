@@ -11,10 +11,16 @@ microbatch chunk) reseeds one torch.Generator from those integers, as the
 JAX step folds the step into its key, so a resumed run draws what an
 uninterrupted one would. The streams differ from JAX's threefry ones; the
 step takes explicit draws instead, and the tests hand it JAX's.
+
+make_train_scan takes many steps with the host out of the loop: one CUDA
+graph of the step, replayed. Under a mesh the step runs data-parallel over
+the mesh's data group and, once shard_state has split the state over its
+model axis, tensor-parallel over the model group.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 from typing import Sequence, Tuple
@@ -25,10 +31,12 @@ import torch
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import (GraphDraws, SizeInfo, build_graphs,
                                         draw_graph_randomness)
-from sln_tpu_torch.models.layers import fp32_accumulation, set_mesh
+from sln_tpu_torch.models.layers import MLP, fp32_accumulation, set_mesh
 from sln_tpu_torch.models.vae import Sg2ScVAE, params_from_jax
 from sln_tpu_torch.parallel.mesh import (Mesh, all_reduce_flat,
                                          all_reduce_sum)
+from sln_tpu_torch.parallel.sharding import (local_shard, partition_specs,
+                                             shard_params)
 from sln_tpu_torch.train import checkpoint as ckpt_lib
 from sln_tpu_torch.train.losses import vae_losses
 
@@ -112,6 +120,38 @@ def step_seed(seed: int, step: int, chunk: Optional[int] = None) -> int:
         1, np.uint64)[0])
 
 
+def chunk_rows(batch: int, microbatch: int) -> int:
+    """The rows of one microbatch chunk of a global batch (the whole batch
+    when microbatch is 0 or >= it); a batch it does not divide raises."""
+    mb = microbatch if 0 < microbatch < batch else batch
+    if batch % mb:
+        raise ValueError(f"batch size {batch} is not divisible by "
+                         f"train.microbatch {mb}")
+    return mb
+
+
+def step_draws(generator: torch.Generator, cfg: Config, step: int,
+               batch: int, O: int, device) -> List[ChunkDraws]:
+    """The random numbers of train step `step` on a global batch of
+    `batch` rows: one (GraphDraws, z noise) per microbatch chunk, each
+    from `generator` seeded with the step's (the chunk's) step_seed, the
+    graph randomness first, then the noise, as the model would draw it
+    (None under use_ae)."""
+    mb = chunk_rows(batch, cfg.train.microbatch)
+    k = batch // mb
+    out = []
+    for i in range(k):
+        generator.manual_seed(step_seed(cfg.train.seed, step) if k == 1
+                              else step_seed(cfg.train.seed, step, i))
+        graph = draw_graph_randomness(mb, O, generator, device)
+        noise = None
+        if not cfg.model.use_ae:
+            noise = torch.randn((mb, O, cfg.model.latent_dim),
+                                generator=generator, device=device)
+        out.append((graph, noise))
+    return out
+
+
 def create_state(cfg: Config, device, restored: Optional[Dict] = None
                  ) -> TrainState:
     """The model initialised from cfg.train.seed (or from a checkpoint's
@@ -134,6 +174,22 @@ def create_state(cfg: Config, device, restored: Optional[Dict] = None
                        0 if restored is None else restored["counters"]["t"],
                        torch.Generator(device))
     state.rollback = Rollback(state.state_tensors())
+    return state
+
+
+def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """Tensor parallelism for a TrainState (built whole by create_state):
+    shard_params on the model, Adam's moments split by the same specs,
+    and the NaN guard's Rollback rebuilt on the shards. Returns it."""
+    specs = partition_specs(state.model)
+    named = list(state.model.named_parameters())
+    shard_params(state.model, mesh)
+    if mesh.num_model > 1:
+        for name, p in named:
+            moments = state.optimizer.state[p]
+            for key in ("exp_avg", "exp_avg_sq"):
+                moments[key] = local_shard(moments[key], specs[name], mesh)
+        state.rollback = Rollback(state.state_tensors())
     return state
 
 
@@ -160,31 +216,29 @@ def make_train_step(state: TrainState, cfg: Config, size_info: SizeInfo,
     and reports skipped_nan = 1.
 
     Under a `mesh` with a process group, `raw` is this rank's rows of the
-    global batch (shard_rows: its share of each global chunk) and the step
-    computes the global batch's step: each chunk's draws are the global
-    chunk's (from the same seed; this rank keeps its rows; `draws` too are
-    the global chunks'), BatchNorm's statistics and every loss normalizer
-    are global, each rank backpropagates total / world_size, and the
-    gradients are summed over the ranks before Adam, so every replica takes
-    the same update and decides the NaN guard on the same global loss."""
+    global batch (shard_rows by its data index: its share of each global
+    chunk) and the step computes the global batch's step: each chunk's
+    draws are the global chunk's (from the same seed; this rank keeps its
+    rows; `draws` too are the global chunks'), BatchNorm's statistics and
+    every loss normalizer are global, each rank backpropagates total /
+    data_size, and the gradients are summed over the data group before
+    Adam, so every replica takes the same update and decides the NaN guard
+    on the same global loss. Under a mesh with a model axis the state must
+    be sharded over it (shard_state): the MLPs run tensor-parallel, the
+    ranks of a model group compute everything else alike, so a replicated
+    parameter gets the same gradient on each of them."""
     tc, dc = cfg.train, cfg.data
     model, optimizer = state.model, state.optimizer
     params = list(model.parameters())
     sharded = mesh is not None and mesh.distributed
-    world = mesh.world_size if sharded else 1
+    world = mesh.data_size if sharded else 1
+    tp = mesh is not None and mesh.num_model > 1
+    if any((m.model_mesh is not None) != tp
+           for m in model.modules() if isinstance(m, MLP)):
+        raise ValueError("a mesh with more than one model rank needs the "
+                         "model sharded over it (shard_state), and only such "
+                         "a mesh takes a sharded model")
     set_mesh(model, mesh if sharded else None)
-
-    def global_draws(n: int, O: int, device, seed: int) -> ChunkDraws:
-        """A global chunk of n rows' draws from the step's generator: the
-        graph randomness, then the z noise, as the model would draw it."""
-        gen = state.generator
-        gen.manual_seed(seed)
-        graph_draws = draw_graph_randomness(n, O, gen, device)
-        noise = None
-        if not cfg.model.use_ae:
-            noise = torch.randn((n, O, cfg.model.latent_dim), generator=gen,
-                                device=device)
-        return graph_draws, noise
 
     def chunk_grads(chunk: RawBatch, kl_w: float, draws: ChunkDraws,
                     rows: slice, weigh: bool):
@@ -214,10 +268,7 @@ def make_train_step(state: TrainState, cfg: Config, size_info: SizeInfo,
     def step_fn(raw: RawBatch, draws: Optional[Sequence[ChunkDraws]] = None
                 ) -> Dict[str, torch.Tensor]:
         B = raw.objs.shape[0] * world
-        mb = tc.microbatch if 0 < tc.microbatch < B else B
-        if B % mb:
-            raise ValueError(f"batch size {B} is not divisible by "
-                             f"train.microbatch {mb}")
+        mb = chunk_rows(B, tc.microbatch)
         if mb % world:
             raise ValueError(f"train.microbatch {mb} does not split over "
                              f"{world} ranks")
@@ -226,25 +277,21 @@ def make_train_step(state: TrainState, cfg: Config, size_info: SizeInfo,
         if draws is not None and len(draws) != k:
             raise ValueError(f"{len(draws)} draws for {k} chunks")
         kl_w = kl_weight_at(state.step + 1, tc)
+        if draws is None:
+            draws = step_draws(state.generator, cfg, state.step, B,
+                               raw.objs.shape[1], raw.objs.device)
         model.train(not eval_mode)
         state.rollback.save()
 
-        def draws_of(i):
-            if draws is not None:
-                return draws[i]
-            return global_draws(mb, raw.objs.shape[1], raw.objs.device,
-                                step_seed(tc.seed, state.step) if k == 1
-                                else step_seed(tc.seed, state.step, i))
-
         if k == 1:
-            grads, total, losses, _ = chunk_grads(raw, kl_w, draws_of(0),
+            grads, total, losses, _ = chunk_grads(raw, kl_w, draws[0],
                                                   rows, False)
             if sharded:
                 grads = all_reduce_flat(grads, mesh)
         else:
             for i in range(k):
                 chunk = RawBatch(*(a[i * mbl:(i + 1) * mbl] for a in raw))
-                g, t, ls, n = chunk_grads(chunk, kl_w, draws_of(i), rows,
+                g, t, ls, n = chunk_grads(chunk, kl_w, draws[i], rows,
                                           True)
                 g = torch._foreach_mul(g, n)
                 ls = {name: n * v for name, v in ls.items()}
@@ -275,6 +322,156 @@ def make_train_step(state: TrainState, cfg: Config, size_info: SizeInfo,
     return step_fn
 
 
+def _draw_tensors(draws: Sequence[ChunkDraws]) -> List[torch.Tensor]:
+    """One step's draws as a flat list of tensors (no noise under
+    use_ae)."""
+    return [t for graph, noise in draws for t in (*graph, noise)
+            if t is not None]
+
+
+@contextlib.contextmanager
+def _capturable(optimizer: torch.optim.Optimizer):
+    """Adam's capture check wants capturable=True while a step is
+    captured. The fused update the state holds ignores the flag (its step
+    count is on the device either way), so the step's bits do not change;
+    the flag is put back after."""
+    groups = optimizer.param_groups
+    if not all(g.get("fused") for g in groups):
+        raise ValueError("the train scan's graph needs the fused Adam "
+                         "create_state builds")
+    saved = [g["capturable"] for g in groups]
+    for g in groups:
+        g["capturable"] = True
+    try:
+        yield
+    finally:
+        for g, flag in zip(groups, saved):
+            g["capturable"] = flag
+
+
+class _GraphedStep:
+    """One train step captured into a CUDA graph, with its static inputs
+    (the raw batch and one step's draws), its static output (the running
+    sum of total_loss) and the KL weight it was captured with."""
+
+    WARMUP = 2
+
+    def __init__(self, state: TrainState, step_fn, raw: RawBatch,
+                 draws: Sequence[ChunkDraws], kl_w: float):
+        self.kl_w = kl_w
+        self.raw = RawBatch(*(a.clone() for a in raw))
+        self.draws = [(GraphDraws(*(d.clone() for d in graph)),
+                       None if noise is None else noise.clone())
+                      for graph, noise in draws]
+        self.draw_slots = _draw_tensors(self.draws)
+        self.total = torch.zeros((), device=raw.objs.device)
+        # warm-up and capture run the step's host code, and the warm-up
+        # its device work too: both are undone, so the graph starts from
+        # the state the scan was called with
+        tensors = state.state_tensors()
+        saved = [t.detach().clone() for t in tensors]
+        step0 = state.step
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                step_fn(self.raw, self.draws)
+        torch.cuda.current_stream().wait_stream(side)
+        state.step = step0
+        self.graph = torch.cuda.CUDAGraph()
+        with _capturable(state.optimizer), torch.cuda.graph(self.graph):
+            losses = step_fn(self.raw, self.draws)
+            self.total.add_(losses["total_loss"])
+        state.step = step0
+        with torch.no_grad():
+            torch._foreach_copy_(tensors, saved)
+
+    def fits(self, raw: RawBatch, draws: Sequence[ChunkDraws],
+             kl_w: float) -> bool:
+        return (kl_w == self.kl_w
+                and all(a.shape == b.shape and a.dtype == b.dtype
+                        for a, b in zip(raw, self.raw))
+                and [t.shape for t in _draw_tensors(draws)]
+                == [t.shape for t in self.draw_slots])
+
+    def run(self, raw: RawBatch, draws: Sequence[Sequence[ChunkDraws]]
+            ) -> torch.Tensor:
+        """Replay the step once per entry of `draws` (each copied into the
+        static slots first, one device-to-device copy); the host reads
+        nothing back in between. Returns the sum of total_loss."""
+        with torch.no_grad():
+            torch._foreach_copy_(list(self.raw), list(raw))
+            self.total.zero_()
+            for step in draws:
+                torch._foreach_copy_(self.draw_slots, _draw_tensors(step))
+                self.graph.replay()
+        return self.total.clone()
+
+
+def make_train_scan(state: TrainState, cfg: Config, size_info: SizeInfo,
+                    eval_mode: bool = False) -> Callable[..., torch.Tensor]:
+    """Many train steps with the host out of the loop (the JAX package's
+    make_train_scan, loop.py:225-260): run(raw, n, draws=None) takes n of
+    make_train_step's steps on the same raw batch, advances the state
+    (state.step included) by n, and returns the sum of their total_loss
+    as a 0-dim tensor on the device, summed in step order.
+
+    draws, one entry per step (each make_train_step's per-chunk list),
+    replaces the steps' own random numbers, which are otherwise drawn
+    from step_seed before the loop, the eager steps' numbers. The KL weight
+    is a host float captured with the step: a window whose steps do not
+    all share kl_weight_at's value raises (under kl_linear_decay the
+    weight changes every 100,000 steps); a later call at another weight
+    captures anew.
+
+    On the card the step is captured into a torch.cuda.CUDAGraph after a
+    warm-up on a side stream (undone, so the state is the caller's), then
+    replayed n times; each step's draws go into the graph's static slots
+    by one device-to-device copy. A failed capture or replay raises. The
+    gradients live in the graph's pool: nothing outside a replay may read
+    them. On the CPU the plain version runs: the eager loop of the step.
+    The scan runs on one device, as the JAX scan: it raises inside an
+    initialized process group (a model sharded over a model axis is
+    refused by make_train_step)."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        raise ValueError("make_train_scan runs on one device (the JAX scan "
+                         "is single-device): not inside a process group")
+    step_fn = make_train_step(state, cfg, size_info, eval_mode)
+    captured: List[_GraphedStep] = []
+
+    def run(raw: RawBatch, n: int,
+            draws: Optional[Sequence[Sequence[ChunkDraws]]] = None
+            ) -> torch.Tensor:
+        if n < 1:
+            raise ValueError(f"a scan of {n} steps")
+        if draws is not None and len(draws) != n:
+            raise ValueError(f"{len(draws)} steps' draws for {n} steps")
+        kl_w = kl_weight_at(state.step + 1, cfg.train)
+        if kl_weight_at(state.step + n, cfg.train) != kl_w:
+            raise ValueError(
+                f"the KL weight changes inside steps {state.step + 1}.."
+                f"{state.step + n}: a scan captures one weight, so end the "
+                "window where kl_weight_at changes")
+        device = raw.objs.device
+        if device.type != "cuda":
+            total = torch.zeros((), device=device)
+            for i in range(n):
+                losses = step_fn(raw, None if draws is None else draws[i])
+                total = total + losses["total_loss"]
+            return total
+        if draws is None:
+            B, O = raw.objs.shape
+            draws = [step_draws(state.generator, cfg, state.step + i, B, O,
+                                device) for i in range(n)]
+        if not captured or not captured[0].fits(raw, draws[0], kl_w):
+            captured[:] = [_GraphedStep(state, step_fn, raw, draws[0], kl_w)]
+        total = captured[0].run(raw, draws)
+        state.step += n
+        return total
+
+    return run
+
+
 def batch_indices(n: int, batch_size: int, rng: np.random.Generator
                   ) -> Iterator[np.ndarray]:
     """Shuffled fixed-size epoch index stream: (B,) int32 per batch; the
@@ -294,8 +491,8 @@ def shard_rows(global_batch: int, microbatch: int, rank: int, world: int
     order its step reads them: its share of each global microbatch chunk,
     rows [i mb + r mb/N, i mb + (r+1) mb/N) of chunk i (one chunk of the
     whole batch when microbatch is 0 or >= the batch)."""
-    mb = microbatch if 0 < microbatch < global_batch else global_batch
-    if global_batch % mb or mb % world:
+    mb = chunk_rows(global_batch, microbatch)
+    if mb % world:
         raise ValueError(f"global batch {global_batch} in chunks of {mb} "
                          f"does not split over {world} ranks")
     per = mb // world

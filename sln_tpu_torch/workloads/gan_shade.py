@@ -323,17 +323,17 @@ def colorize(model: SPADEGenerator4, spade_input: torch.Tensor,
 
     mesh: multi-card serving over a process group (the JAX package's
     gan_shade.py:395-452). The z stream is the single-device one; each
-    chunk is padded with discarded zero rows up to a multiple of the world
-    size and its rows split over the ranks; `seg_mods` runs once per rank;
-    the images are all-gathered (every rank returns them all) and the
-    padding dropped."""
+    chunk is padded with discarded zero rows up to a multiple of the data
+    group's size and its rows split over the data group; `seg_mods` runs
+    once per rank; the images are all-gathered (every rank returns them
+    all) and the padding dropped."""
     sharded = mesh is not None and mesh.distributed
     mods = model.seg_mods(spade_input[None])
     imgs = []
     for z in zs:
         n = z.shape[0]
         if sharded:
-            z = F.pad(z, (0, 0, 0, -n % mesh.world_size))
+            z = F.pad(z, (0, 0, 0, -n % mesh.data_size))
             z = z[mesh.rows(z.shape[0])]
         rgb = model.decode(mods, z)
         if out_dtype == "uint8":

@@ -217,8 +217,10 @@ class Refiner:
     `model` is updated in place: pass a copy to keep the original.
 
     mesh: multi-card serving over a process group (the JAX package's
-    shard_refine_inputs). Every per-room input is this rank's rooms
-    (shard_refine_inputs), and each rank renders them through both
+    shard_refine_inputs). Every per-room input is this rank's rooms (by
+    its data index: shard_refine_inputs), the sums below run over its data
+    group (the ranks of a model group, on a mesh with a model axis, serve
+    the same rooms alike), and each rank renders its rooms through both
     kernels. Each room's z keeps its own gradient; each rank's loss is its
     rooms' share of the mean over the global batch (the local mean times
     B_local / B), and the decoder's gradients are summed over the ranks, so
@@ -235,7 +237,7 @@ class Refiner:
                  mesh: Optional[Mesh] = None):
         ref = self.ref = cfg.refine
         self.mesh = mesh if mesh is not None and mesh.distributed else None
-        world = self.mesh.world_size if self.mesh else 1
+        world = self.mesh.data_size if self.mesh else 1
         self.global_rows = world * batch.objs.shape[0]
         self.rows = (self.mesh.rows(self.global_rows) if self.mesh
                      else slice(None))

@@ -103,6 +103,8 @@ def test_every_module_imports_with_jax_blocked():
     assert "sln_tpu_torch.render.blender.scene_spec" in names
     assert "sln_tpu_torch.render.preview" in names
     assert "sln_tpu_torch.parallel.mesh" in names
+    assert "sln_tpu_torch.parallel.sharding" in names
+    assert "sln_tpu_torch.dryrun" in names
     for module in ("native", "data.objio", "ops.iou",
                    "tools.build_asset_bank", "tools.eval_refinement_quality",
                    "tools.sweep_refinement"):
@@ -110,15 +112,16 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_parallel_modules_and_rank_worker_import_no_jax():
-    """The data-parallel modules build on torch.distributed and import
-    nothing of JAX; the rank worker the parallel tests spawn
-    (tests/torch_dist_worker.py) imports only the standard library, numpy,
-    torch and the port, and makes JAX and the JAX package unimportable in
-    each rank before it imports the port."""
+    """The data- and tensor-parallel modules and the dry run build on
+    torch.distributed and import nothing of JAX; the rank worker the
+    parallel tests spawn (tests/torch_dist_worker.py) imports only the
+    standard library, numpy, torch and the port, and makes JAX and the JAX
+    package unimportable in each rank before it imports the port."""
     mesh_mods = set(_imported_modules(PORT / "parallel" / "mesh.py"))
     assert "torch.distributed" in mesh_mods
-    for rel in ("__init__.py", "mesh.py"):
-        mods = _imported_modules(PORT / "parallel" / rel)
+    for rel in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/sharding.py", "dryrun.py", "train/loop.py"):
+        mods = _imported_modules(PORT / rel)
         assert not [m for m in mods if m.split(".")[0] in FORBIDDEN], rel
     worker = REPO / "tests" / "torch_dist_worker.py"
     allowed = set(sys.stdlib_module_names) | {"numpy", "torch",

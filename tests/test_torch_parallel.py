@@ -304,7 +304,7 @@ def test_cli_refuses_a_shard_count_that_is_not_the_world(monkeypatch,
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(ValueError, match="launcher started 2"):
-        tmesh.make_mesh(4, "cpu")
+        tmesh.make_mesh(4, device="cpu")
     assert not torch.distributed.is_initialized()
     assert not os.listdir(tmp_path)
 

@@ -23,11 +23,15 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sln_tpu", "tools")
 
 
-def launch(world: int, job: dict, workdir) -> Callable[..., list]:
+def launch(world: int, job: dict, workdir, nodes: int = 1
+           ) -> Callable[..., list]:
     """Start `job` on `world` ranks (one process each, gloo through a
     FileStore in `workdir`); returns wait(timeout), which waits for them
     and returns each rank's results in rank order (or raises with the log
-    of a rank that failed). The caller works on while the ranks run."""
+    of a rank that failed). The caller works on while the ranks run.
+    nodes > 1 gives the ranks the environment torchrun gives ranks on that
+    many nodes of equal size (GROUP_RANK, LOCAL_RANK, LOCAL_WORLD_SIZE),
+    contiguous ranks to a node."""
     import torch
 
     workdir = pathlib.Path(workdir)
@@ -35,11 +39,14 @@ def launch(world: int, job: dict, workdir) -> Callable[..., list]:
     job_path = workdir / "job.pt"
     torch.save(job, job_path)
     init = f"file://{workdir / 'store'}"
-    procs = []
+    procs, per_node = [], world // nodes
     for rank in range(world):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
-                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank % per_node),
+                   LOCAL_WORLD_SIZE=str(per_node),
                    PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+        if nodes > 1:
+            env["GROUP_RANK"] = str(rank // per_node)
         procs.append(subprocess.Popen(
             [sys.executable, __file__, str(job_path), init, str(workdir)],
             env=env, cwd=str(workdir), stdout=subprocess.PIPE,
@@ -193,8 +200,99 @@ def _colorize(mesh, job):
             for dtype in ("float32", "uint8")}
 
 
+def _task_mesh(mesh, job):
+    """The mesh a tensor-parallel task names: ("mesh", data, model) or
+    ("multislice", slices, data per slice, model), on the world's group."""
+    from sln_tpu_torch.parallel import mesh as meshlib
+
+    kind, *shape = job["mesh"]
+    make = {"mesh": meshlib.make_mesh,
+            "multislice": meshlib.make_multislice_mesh}[kind]
+    return make(*shape, device=job["device"])
+
+
+def _tp_mlp(mesh, job):
+    """Each of job["mlps"] (dims, batch_norm, final_plain, state_dict) run
+    tensor-parallel on this rank's data rows of x in train mode, then
+    backpropagated from sum(y * w) (its own of job["w"]): this rank's rows
+    of y and of x's
+    gradient, and the parameters' gradients summed over the data group and
+    gathered over the model group."""
+    import torch
+
+    from sln_tpu_torch.models.layers import MLP, set_mesh
+    from sln_tpu_torch.parallel.mesh import all_reduce_flat
+    from sln_tpu_torch.parallel.sharding import gather_params, shard_params
+
+    tp = _task_mesh(mesh, job)
+    out = []
+    for (dims, bn, final_plain, sd), w in zip(job["mlps"], job["w"]):
+        mlp = MLP(dims, bn, final_plain)
+        mlp.load_state_dict(sd)
+        shard_params(mlp, tp)
+        set_mesh(mlp, tp)
+        rows = tp.rows(job["x"].shape[0])
+        x = torch.as_tensor(job["x"][rows]).requires_grad_(True)
+        y = mlp(x, torch.as_tensor(job["mask"][rows]))
+        (y * torch.as_tensor(w[rows])).sum().backward()
+        names = [n for n, _ in mlp.named_parameters()]
+        grads = all_reduce_flat([p.grad for p in mlp.parameters()], tp)
+        out.append({"y": y.detach(), "x_grad": x.grad,
+                    "grads": gather_params(mlp, tp, dict(zip(names, grads))),
+                    "state": gather_params(mlp, tp)})
+    return out
+
+
+def _tp_train(mesh, job):
+    """`steps` train steps under the task's mesh from `restored`, with the
+    state sharded over its model axis (shard_state) and the global `draws`
+    per step: the losses, the full model state after the steps (gathered,
+    JAX layout), this rank's state tensors (its shards) with their names
+    and specs, whether gather_params gave back the restored weights bit
+    for bit, and the rank's mesh coordinates."""
+    import torch
+
+    from sln_tpu_torch.data.augment import GraphDraws, SizeInfo
+    from sln_tpu_torch.models.vae import params_to_jax
+    from sln_tpu_torch.parallel.sharding import gather_params, partition_specs
+    from sln_tpu_torch.train import loop
+
+    tp = _task_mesh(mesh, job)
+    cfg, device = job["cfg"], tp.device
+    size_info = SizeInfo(*(torch.as_tensor(x, device=device)
+                           for x in job["size_table"]))
+    raw = loop.RawBatch(*(torch.as_tensor(job["raw"][k], device=device)
+                          for k in loop.RawBatch._fields))
+    rows = torch.as_tensor(loop.shard_rows(
+        raw.objs.shape[0], cfg.train.microbatch, tp.data_index,
+        tp.data_size))
+    local = loop.RawBatch(*(a[rows] for a in raw))
+    state = loop.create_state(cfg, device, job["restored"])
+    full = {k: v.clone() for k, v in state.model.state_dict().items()}
+    specs = partition_specs(state.model)
+    loop.shard_state(state, tp)
+    roundtrip = all(torch.equal(full[k], v) for k, v in
+                    gather_params(state.model, tp).items())
+    step = loop.make_train_step(state, cfg, size_info, mesh=tp)
+    losses = []
+    for s in range(job["steps"]):
+        draws = [(GraphDraws(*(torch.as_tensor(x) for x in graph)),
+                  torch.as_tensor(noise)) for graph, noise in job["draws"][s]]
+        losses.append({k: v.cpu() for k, v in step(local, draws).items()})
+    names = [n for n, _ in state.model.named_parameters()]
+    return {"losses": losses, "roundtrip": roundtrip,
+            "model_state": params_to_jax(gather_params(state.model, tp),
+                                         cfg.model),
+            "local": {n: t.detach().clone() for n, t in
+                      state.model.state_dict().items()},
+            "adam": {n: [v.clone() for v in state.optimizer.state[p].values()]
+                     for n, p in zip(names, state.model.parameters())},
+            "specs": specs, "coords": tp.coords,
+            "data_index": tp.data_index}
+
+
 TASKS = {"train": _train, "sampler": _sampler, "refine": _refine,
-         "colorize": _colorize}
+         "colorize": _colorize, "tp_mlp": _tp_mlp, "tp_train": _tp_train}
 
 
 def main(job_path: str, init: str, out_dir: str) -> None:
@@ -206,7 +304,7 @@ def main(job_path: str, init: str, out_dir: str) -> None:
 
     torch.set_num_threads(1)
     job = torch.load(job_path, weights_only=False)
-    mesh = make_mesh(int(os.environ["WORLD_SIZE"]), job["device"],
+    mesh = make_mesh(int(os.environ["WORLD_SIZE"]), device=job["device"],
                      init_method=init)
     try:
         results = {name: TASKS[task["kind"]](mesh, task)
