@@ -10,6 +10,8 @@
     python3 chip_smoke.py --layout-eval-only  # device, build, layout_eval
     python3 chip_smoke.py --train-scan-only   # device, build, train_scan
     python3 chip_smoke.py --tp-only        # device, build, tensor_parallel
+    python3 chip_smoke.py --spade-variants-only  # device, build,
+                                                 # spade_variants
 
 Phases, each printing a line as it ends:
   1. device   the card must be there (else this exits non-zero); prints
@@ -116,6 +118,22 @@ Phases, each printing a line as it ends:
               steps twice. With --spade-recipe the whole recipe follows: 4
               chained runs of 750 steps, val PSNR / L1 every 250 beside the
               committed generator's, and the quality cell on the result
+  8b. spade_variants
+              the rest of SPADE at full width (the classic generator,
+              generators 2, 3 and 5 at ngf 64, 256 px, nz 256; ConvEncoder,
+              ConvEncoderPSPSE and ConvEncoderPSPSEMMD2 at nef 64 on 256 px
+              RGB; NLayerDiscriminatorMMD and MultiscaleDiscriminatorMMD at
+              ndf 64, nz 256 on RGB + 41 segmentation channels), each from
+              init_like_jax on the card with the JAX classes' parameter
+              counts: two forwards at batch 2 the same bits, card against
+              the module copied to the CPU at batch 1 (max abs 1e-3), the
+              spectral vectors after one train=True forward card against
+              CPU (1e-4), a backward through generator 3 and through
+              ConvEncoderPSPSE, card against CPU and each against the
+              card's float64 (gradients finite; relative error of all of
+              them and of each tensor 1e-2), forward ms at
+              batch 2 (CUDA events, best of 3) beside the share of the
+              fp32 peak its conv FLOPs take
   9. bf16     the bfloat16 compute modes: `python -m sln_tpu_torch.train
               --compute_dtype bfloat16` through its main at the recipe's
               width (200 iterations): finite losses falling, the trio
@@ -229,7 +247,7 @@ Phases, each printing a line as it ends:
               device-to-host copies, and the runtime's copies and
               synchronisations inside the steps and outside them
 Then one JSON line of kernel records, the refine, sampling, train,
-train_scan, spade, spade_train and culling lines, one line per bf16 group
+train_scan, spade, spade_train, spade_variants and culling lines, one line per bf16 group
 (bf16_train, bf16_sampling, bf16_refine, bf16_shading), the draw3d,
 parallel, tensor_parallel and layout_eval lines, the card's nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failed phase
@@ -270,7 +288,13 @@ from sln_tpu_torch.render import rasterizer as raster
 from sln_tpu_torch.render import rasterizer_cuda as rc
 from sln_tpu_torch.render import scene as scene_lib
 from sln_tpu_torch.render.blender import scene_spec
-from sln_tpu_torch.spade.discriminator import instance_normed_biases
+from sln_tpu_torch.spade import classic as spade_classic
+from sln_tpu_torch.spade import encoders as spade_encoders
+from sln_tpu_torch.spade import port as spade_port
+from sln_tpu_torch.spade import variants as spade_variants
+from sln_tpu_torch.spade.discriminator import (ConvEncoder,
+                                               instance_normed_biases)
+from sln_tpu_torch.spade.generator import conv_math
 from sln_tpu_torch.spade.losses import GanState, make_gan_train_step
 from sln_tpu_torch.spade.spectral import SpectralConv
 from sln_tpu_torch.tools import train_spade
@@ -1594,6 +1618,210 @@ def spade_train_phase(cfg, tmp: str, device, smi: str,
                   flush=True)
             res["recipe"] = {"seconds": seconds, "evals": evals,
                              "quality": quality}
+    return res
+
+
+# the rest of SPADE at full width (semantic_nc 41, ngf / nef / ndf 64, nz
+# 256, 256 px; the discriminators take RGB + 41 segmentation channels, as
+# the shading trainer builds them), with the parameter counts of the JAX
+# package's classes (jax.eval_shape); generator 3 and the PSP-SE encoder
+# also take a backward. Card against CPU: outputs max abs SPADE_VARIANT_ERR
+# (the spade phase's bound), the spectral vectors after one training
+# forward SPADE_SPECTRAL_ERR. Gradients: the card's and the CPU's float32
+# against each other and each against the card's float64, all of them as
+# one vector and each tensor whose gradient is above rounding (norm over
+# 1e-5 of the largest tensor's: a conv bias before an instance norm has a
+# gradient of rounding alone), relative, SPADE_VARIANT_GRAD_REL: on
+# generator 3, whose instance norms start at an 8 x 8 map, the card's
+# float32 gradient is 1.31e-3 from float64 and the CPU's 5.1e-4 (PERF.md
+# §6), so 1e-3 would gate float32's rounding, not the port
+SPADE_VARIANTS = [  # (name, module, input, parameters, backward)
+    ("SPADEGenerator", lambda: spade_classic.SPADEGenerator(), "gen",
+     109_740_611, False),
+    ("SPADEGenerator2", lambda: spade_variants.SPADEGenerator2(), "gen",
+     74_106_627, False),
+    ("SPADEGenerator3", lambda: spade_variants.SPADEGenerator3(), "gen",
+     111_396_995, True),
+    ("SPADEGenerator5", lambda: spade_variants.SPADEGenerator5(), "gen",
+     110_477_539, False),
+    ("ConvEncoder", lambda: ConvEncoder(64, 256, 256), "img", 6_533_248,
+     False),
+    ("ConvEncoderPSPSE", lambda: spade_encoders.ConvEncoderPSPSE(64, 256),
+     "img", 29_612_288, True),
+    ("ConvEncoderPSPSEMMD2",
+     lambda: spade_encoders.ConvEncoderPSPSEMMD2(64, 256), "img",
+     63_168_512, False),
+    ("NLayerDiscriminatorMMD",
+     lambda: spade_encoders.NLayerDiscriminatorMMD(44, 64, 3, 256), "disc",
+     832_705, False),
+    ("MultiscaleDiscriminatorMMD",
+     lambda: spade_encoders.MultiscaleDiscriminatorMMD(44, 64, 3, 2, 256),
+     "disc", 1_058_690, False),
+]
+SPADE_VARIANT_ERR = 1e-3
+SPADE_SPECTRAL_ERR = 1e-4
+SPADE_VARIANT_GRAD_REL = 1e-2
+
+
+def _flat(out) -> list:
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def spade_variant_inputs(kind: str, B: int) -> tuple:
+    """Seeded inputs on the CPU: (seg, z) for a generator, an image batch
+    for an encoder, RGB + segmentation for a discriminator."""
+    gen = torch.Generator().manual_seed(21)
+    seg = torch.zeros(B, 41, 256, 256)
+    seg[:, 0] = torch.rand(B, 256, 256, generator=gen) * 2 - 1
+    cls = torch.randint(1, 41, (B, 1, 256, 256), generator=gen)
+    seg.scatter_(1, cls, 1.0)
+    rgb = torch.rand(B, 3, 256, 256, generator=gen) * 2 - 1
+    if kind == "gen":
+        return seg, torch.randn(B, 256, generator=gen)
+    return (rgb,) if kind == "img" else (torch.cat([rgb, seg], 1),)
+
+
+def float64_copy(model, device):
+    """model in float64 on device, its convs computing in float64 too."""
+    m = copy.deepcopy(model).to(device).double()
+    for mod in m.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    return m
+
+
+def grad_rel(model_a, model_b) -> dict:
+    """model_a's gradients against model_b's: relative error (norm of the
+    difference over model_b's norm) of all of them as one vector, and the
+    largest per tensor among the tensors above rounding level; raises on a
+    missing or non-finite gradient."""
+    ga = {n: p.grad for n, p in model_a.named_parameters()}
+    gb = {n: p.grad.double().cpu() for n, p in model_b.named_parameters()}
+    for n, g in ga.items():
+        if g is None or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"gradient of {n} missing or not finite")
+    diff = {n: float((ga[n].double().cpu() - g).norm())
+            for n, g in gb.items()}
+    norms = {n: float(g.norm()) for n, g in gb.items()}
+    floor = 1e-5 * max(norms.values())
+    rels = {n: diff[n] / norms[n] for n in gb if norms[n] > floor}
+    worst = max(rels, key=rels.get)
+    return {"all_rel": float(np.linalg.norm(list(diff.values()))
+                             / np.linalg.norm(list(norms.values()))),
+            "tensor_max_rel": rels[worst], "worst_tensor": worst,
+            "tensors_compared": len(rels),
+            "tensors_at_rounding": len(gb) - len(rels)}
+
+
+def spade_variants_phase(device, smi: str) -> dict:
+    """ROADMAP item 6's classes on the card at full width, each from
+    init_like_jax on the card: two forwards at batch 2 the same bits, the
+    module copied to the CPU within SPADE_VARIANT_ERR at batch 1, the
+    spectral vectors after one training forward card against CPU, the
+    backward of generator 3 and of the PSP-SE encoder card against CPU,
+    and forward ms at batch 2 beside the conv-FLOP bound."""
+    res = {}
+    with phase("spade_variants"):
+        for i, (name, make, kind, n_expect, backward) in enumerate(
+                SPADE_VARIANTS):
+            t0 = time.perf_counter()
+            model = spade_port.init_like_jax(make().to(device), 100 + i)
+            n_params = sum(p.numel() for p in model.parameters())
+            if n_params != n_expect:
+                raise AssertionError(f"{name}: {n_params} parameters, the "
+                                     f"JAX package's has {n_expect}")
+            model_c = copy.deepcopy(model).cpu()
+            x2 = [t.to(device) for t in spade_variant_inputs(kind, 2)]
+            x1 = [t[:1] for t in spade_variant_inputs(kind, 2)]
+            with torch.no_grad():
+                runs = [_flat(model(*x2)) for _ in range(2)]
+                on_cpu = _flat(model_c(*x1))
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            err = max(max_err(a[:1].cpu(), b)
+                      for a, b in zip(runs[0], on_cpu))
+            if not all(bool(torch.isfinite(t).all()) for t in runs[0]):
+                raise AssertionError(f"{name}: output not finite")
+            if not same:
+                raise AssertionError(f"{name}: two runs on the card differ")
+            if not err <= SPADE_VARIANT_ERR:
+                raise AssertionError(f"{name}: card vs CPU {err} > "
+                                     f"{SPADE_VARIANT_ERR}")
+            rec = {"parameters": n_params, "outputs": len(runs[0]),
+                   "card_vs_cpu_max_abs_err": err, "two_runs_equal": same}
+            del runs, on_cpu
+            with torch.no_grad():
+                fwd = [event_ms(lambda: model(*x2), 2, 1 if k == 0 else 0)
+                       for k in range(3)]
+                flops = conv_flops(model, lambda: model(*x2))
+            rec["forward_ms_b2"] = min(fwd)
+            rec["gflop"] = flops / 1e9
+            rec["peak_share"] = flops / PEAK_FP32_FLOPS / (min(fwd) / 1e3)
+            line = (f"  {name}: {n_params} parameters; two card runs "
+                    f"equal; card vs CPU max abs err {err:.3e} (bound "
+                    f"{SPADE_VARIANT_ERR}); forward at batch 2 "
+                    f"{min(fwd):.3f} ms (best of 3, CUDA events), "
+                    f"{flops / 1e9:.1f} GFLOP = "
+                    f"{100 * rec['peak_share']:.1f} % of the fp32 peak")
+            if kind != "gen":
+                with torch.no_grad():
+                    model(*x2, True)
+                    model_c(*x1, True)
+                bufs_c = dict(model_c.named_buffers())
+                sp_err = max(max_err(b.cpu(), bufs_c[n])
+                             for n, b in model.named_buffers())
+                rec["spectral_vectors"] = len(bufs_c)
+                rec["spectral_max_abs_err"] = sp_err
+                if not sp_err <= SPADE_SPECTRAL_ERR:
+                    raise AssertionError(f"{name}: spectral vectors card vs "
+                                         f"CPU {sp_err}")
+                line += (f"; {len(bufs_c)} spectral vectors after train=True"
+                         f" card vs CPU {sp_err:.3e} (bound "
+                         f"{SPADE_SPECTRAL_ERR})")
+            if backward:
+                # card and CPU in float32, and the card in float64: the
+                # float32 floor beside the card-CPU agreement
+                model_64 = float64_copy(model_c, device)
+                outs = {}
+                for m, dev, dt in ((model, device, torch.float32),
+                                   (model_c, "cpu", torch.float32),
+                                   (model_64, device, torch.float64)):
+                    # the backward too under conv_math, as the shading
+                    # trainer's steps run (spade/losses.py)
+                    with conv_math():
+                        ys = _flat(m(*[t.to(dev, dt) for t in x1]))
+                        gen = torch.Generator().manual_seed(22)
+                        loss = sum((y * torch.randn(
+                            y.shape, generator=gen).to(dev, dt)).sum()
+                            for y in ys)
+                        loss.backward()
+                    outs[str(dt)[6:] + "_" + str(dev)] = float(loss.detach())
+                g = rec["gradients"] = {
+                    "card_vs_cpu": grad_rel(model, model_c),
+                    "card_vs_float64": grad_rel(model, model_64),
+                    "cpu_vs_float64": grad_rel(model_c, model_64),
+                    "losses": outs}
+                del model_64
+                worst = max(max(v["all_rel"], v["tensor_max_rel"])
+                            for k, v in g.items() if k != "losses")
+                if not worst <= SPADE_VARIANT_GRAD_REL:
+                    raise AssertionError(f"{name}: gradients {g}")
+                line += "; backward at batch 1 (loss " + ", ".join(
+                    f"{k} {v:.6f}" for k, v in outs.items()) + ")" + "".join(
+                    f", {k.replace('_', ' ')}: all gradients "
+                    f"{v['all_rel']:.2e}, per tensor at most "
+                    f"{v['tensor_max_rel']:.2e} ({v['worst_tensor']})"
+                    for k, v in g.items() if k != "losses") + (
+                    f" (relative; bound {SPADE_VARIANT_GRAD_REL}; "
+                    f"{g['card_vs_cpu']['tensors_compared']} tensors, "
+                    f"{g['card_vs_cpu']['tensors_at_rounding']} at rounding "
+                    "level)")
+            rec["seconds"] = time.perf_counter() - t0
+            print(f"{line}; {rec['seconds']:.1f} s, on {smi}", flush=True)
+            res[name] = rec
+            del model, model_c, x1, x2
+            torch.cuda.empty_cache()
     return res
 
 
@@ -3400,6 +3628,8 @@ def main() -> None:
                     help="run the device, build and train_scan phases")
     ap.add_argument("--tp-only", action="store_true",
                     help="run the device, build and tensor_parallel phases")
+    ap.add_argument("--spade-variants-only", action="store_true",
+                    help="run the device, build and spade_variants phases")
     ap.add_argument("--parallel-worker", metavar="DIR",
                     help="one rank of the parallel or tensor_parallel "
                          "phase (the phase starts the ranks with "
@@ -3414,7 +3644,7 @@ def main() -> None:
     try:
         run(tmp, args.kernels_only, args.train_recipe, args.spade_recipe,
             args.parallel_only, args.layout_eval_only, args.train_scan_only,
-            args.tp_only)
+            args.tp_only, args.spade_variants_only)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3429,7 +3659,7 @@ def print_ok() -> None:
 def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
         spade_recipe: bool = False, parallel_only: bool = False,
         layout_only: bool = False, scan_only: bool = False,
-        tp_only: bool = False) -> None:
+        tp_only: bool = False, variants_only: bool = False) -> None:
     with phase("device"):
         if not torch.cuda.is_available():
             raise RuntimeError("torch.cuda.is_available() is False: "
@@ -3479,6 +3709,11 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     if tp_only:
         tensor_par, _ = tensor_parallel_phase(tmp, device, smi)
         print(json.dumps({"tensor_parallel": tensor_par}))
+        print_ok()
+        return
+    if variants_only:
+        print(json.dumps({"spade_variants": spade_variants_phase(device,
+                                                                 smi)}))
         print_ok()
         return
 
@@ -3651,6 +3886,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     launches["fwd"] += shading["fwd_launches"]
     spade_training = spade_train_phase(cfg, tmp, device, smi, spade_recipe)
     launches["fwd"] += spade_training["fwd_launches"]
+    variants = spade_variants_phase(device, smi)
 
     with phase("bf16"):
         bf16 = {"train": bf16_train(tmp, device, smi,
@@ -3740,6 +3976,7 @@ def run(tmp: str, kernels_only: bool = False, recipe: bool = False,
     print(json.dumps({"train_scan": scan}))
     print(json.dumps({"spade": shading}))
     print(json.dumps({"spade_train": spade_training}))
+    print(json.dumps({"spade_variants": variants}))
     print(json.dumps({"culling": culling}))
     for group, numbers in bf16.items():
         print(json.dumps({f"bf16_{group}": numbers}))

@@ -198,10 +198,12 @@ struct Value {
   std::vector<std::pair<std::string, Value>> obj;
   std::vector<Value> arr;
 
+  // the last occurrence of a repeated key, as json.loads keeps it
   const Value* find(const std::string& key) const {
+    const Value* out = nullptr;
     for (const auto& kv : obj)
-      if (kv.first == key) return &kv.second;
-    return nullptr;
+      if (kv.first == key) out = &kv.second;
+    return out;
   }
 };
 
@@ -306,12 +308,58 @@ struct Parser {
       literal("null", 4);
     } else {
       v.kind = Value::kNum;
-      char* q = nullptr;
-      v.num = std::strtod(p, &q);
-      if (q == p) ok = false;
-      p = q;
+      number(v);
     }
     return v;
+  }
+
+  // a number token exactly as Python's json.loads takes it: the JSON
+  // grammar -?(0|[1-9][0-9]*)(\.[0-9]+)?([eE][+-]?[0-9]+)? or one of its
+  // NaN, Infinity and -Infinity. strtod alone would also take +0.5, 01,
+  // .5, 1., hex, inf and nan, which json.loads refuses.
+  void number(Value& v) {
+    const char* q = p;
+    auto digits = [&]() {
+      const char* s = q;
+      while (q < end && *q >= '0' && *q <= '9') ++q;
+      return q > s;
+    };
+    auto word = [&](const char* w, size_t n) {
+      return static_cast<size_t>(end - q) >= n && std::memcmp(q, w, n) == 0;
+    };
+    if (q < end && *q == '-') ++q;
+    if (word("Infinity", 8)) {
+      v.num = (*p == '-' ? -1.0 : 1.0) * HUGE_VAL;
+      p = q + 8;
+      return;
+    }
+    if (q == p && word("NaN", 3)) {
+      v.num = std::nan("");
+      p = q + 3;
+      return;
+    }
+    if (q < end && *q == '0') {
+      ++q;
+    } else if (!(q < end && *q >= '1' && *q <= '9') || !digits()) {
+      ok = false;
+      return;
+    }
+    if (q < end && *q == '.' && (++q, !digits())) {
+      ok = false;
+      return;
+    }
+    if (q < end && (*q == 'e' || *q == 'E')) {
+      ++q;
+      if (q < end && (*q == '+' || *q == '-')) ++q;
+      if (!digits()) {
+        ok = false;
+        return;
+      }
+    }
+    // the token is valid JSON, so strtod reads exactly it (the text it
+    // stands in is not NUL-terminated, hence the copy)
+    v.num = std::strtod(std::string(p, q).c_str(), nullptr);
+    p = q;
   }
 
   Value parse_string() {
@@ -461,18 +509,25 @@ int64_t pack_rooms_json(const char* text, int64_t text_len,
   // raises ValueError on int(key) — report -1 so the caller falls back
   // to that clean error instead of silently packing id 0). A std::map
   // keyed by id also reproduces json.loads' duplicate-key semantics
-  // (last occurrence wins).
-  std::map<long long, const json::Value*> room_map;
+  // (last occurrence wins). Two different keys of one id ("1" and "01")
+  // are two rooms to json.loads: report -1, and the caller's json path
+  // packs both.
+  std::map<long long, std::pair<const std::string*, const json::Value*>>
+      room_map;
   for (const auto& kv : root.obj) {
     char* key_end = nullptr;
     long long id = std::strtoll(kv.first.c_str(), &key_end, 10);
     if (kv.first.empty() || key_end != kv.first.c_str() + kv.first.size() ||
         id < INT32_MIN || id > INT32_MAX)
       return -1;
-    room_map[id] = &kv.second;
+    auto seen = room_map.find(id);
+    if (seen != room_map.end() && *seen->second.first != kv.first)
+      return -1;
+    room_map[id] = {&kv.first, &kv.second};
   }
-  std::vector<std::pair<long long, const json::Value*>> rooms(
-      room_map.begin(), room_map.end());  // map iteration is id-sorted
+  std::vector<std::pair<long long, const json::Value*>> rooms;
+  for (const auto& kv : room_map)  // map iteration is id-sorted
+    rooms.emplace_back(kv.first, kv.second.second);
 
   int64_t n_rooms = 0;
   const int O = max_objects;

@@ -177,7 +177,7 @@ def seeded(module_fn, seed: int = 0):
 def refine_setup(device, n_rooms: int) -> tuple:
     """(cfg, batch, device bank, prepare_refine_inputs' inputs) of the
     serving refine: n_rooms of example_setup's rooms at 8 object slots,
-    rendered at 32 px."""
+    rendered at 32 px with the JAX dry run's bank."""
     cfg = default_config().replace(data=DataConfig(
         max_objects=8, max_triples=24, max_on_rels=8))
     cfg = cfg.replace(refine=dataclasses.replace(
@@ -191,9 +191,10 @@ def refine_setup(device, n_rooms: int) -> tuple:
     batch = build_graphs(t("objs"), t("boxes"), t("angles"), t("obj_mask"),
                          t("room_ids"), size_info, max_on_rels=8,
                          generator=torch.Generator(device).manual_seed(0))
-    bank_host = assets.build_procedural_bank(cfg.render.mesh_subdiv)
-    bank = scene_lib.device_bank(bank_host, cfg.render.shell_subdiv,
-                                 device=device)
+    # the JAX dry run's bank: faceless meshes (subdiv 0), so only the room
+    # shell (subdiv 1) has faces
+    bank_host = assets.build_procedural_bank(0)
+    bank = scene_lib.device_bank(bank_host, 1, device=device)
     inputs = refine.prepare_refine_inputs(
         batch, bank_host, bank, refine.refine_render_config(cfg))
     return cfg, batch, bank, inputs

@@ -89,7 +89,7 @@ def vertex_slots(faces: np.ndarray, num_verts: int, width: int
     ascending order, padded with -1. `width` must be at least the largest
     vertex valence (`max_valence`)."""
     lead, n = faces.shape[:-2], faces.shape[-2] * 3
-    flat = np.asarray(faces, np.int64).reshape(-1, n)
+    flat = np.asarray(faces, np.int64).reshape(int(np.prod(lead)), n)
     out = np.full((len(flat), num_verts, width), -1, np.int64)
     for i, f in enumerate(flat):
         order = np.argsort(f, kind="stable")
@@ -100,9 +100,12 @@ def vertex_slots(faces: np.ndarray, num_verts: int, width: int
 
 
 def max_valence(faces: np.ndarray, num_verts: int) -> int:
-    """The most corner slots that read one vertex, over every mesh."""
-    flat = np.asarray(faces, np.int64).reshape(-1, faces.shape[-2] * 3)
-    return max(int(np.bincount(f, minlength=num_verts).max()) for f in flat)
+    """The most corner slots that read one vertex, over every mesh; 0 for
+    meshes with no faces."""
+    flat = np.asarray(faces, np.int64).reshape(
+        int(np.prod(faces.shape[:-2])), faces.shape[-2] * 3)
+    return max((int(np.bincount(f, minlength=num_verts).max())
+                for f in flat if len(f)), default=0)
 
 
 def device_bank(bank: assets.MeshBank, shell_subdiv: int = 4,
@@ -116,17 +119,20 @@ def device_bank(bank: assets.MeshBank, shell_subdiv: int = 4,
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     Vm, Vs = bank.verts.shape[1], shells.verts.shape[1]
-    width = max(max_valence(bank.faces, Vm), max_valence(shells.faces, Vs))
+    # a bank of faceless meshes (build_procedural_bank(0)) stacks its empty
+    # face lists as (M, 0): give it its (M, 0, 3) face axis
+    faces = np.asarray(bank.faces).reshape(bank.face_valid.shape + (3,))
+    width = max(max_valence(faces, Vm), max_valence(shells.faces, Vs))
 
     return DeviceBank(
-        verts=t(bank.verts, torch.float32), faces=t(bank.faces, torch.long),
+        verts=t(bank.verts, torch.float32), faces=t(faces, torch.long),
         face_valid=t(bank.face_valid), bbox_min=t(bank.bbox_min),
         bbox_max=t(bank.bbox_max),
         shell_verts=t(shells.verts, torch.float32),
         shell_faces=t(shells.faces, torch.long),
         shell_part=t(shells.part, torch.long),
         shell_fvalid=t(shells.face_valid),
-        vert_slots=t(vertex_slots(bank.faces, Vm, width)),
+        vert_slots=t(vertex_slots(faces, Vm, width)),
         shell_vert_slots=t(vertex_slots(shells.faces, Vs, width)),
         obj_renderable=t(OBJ_RENDERABLE),
         obj_render_class=t(OBJ_TO_RENDER_CLASS),
@@ -206,11 +212,11 @@ def assemble_scene(objs, boxes, angles, obj_mask, model_idx,
         obj_slots.reshape(B, O * Vm, -1),
         shell_slots[None].expand(B, *shell_slots.shape)], 1)
     verts = torch.cat([world.reshape(B, -1, 3), shell_world], 1)
-    faces = torch.cat([faces_global.reshape(B, -1, 3),
+    faces = torch.cat([faces_global.reshape(B, O * Fm, 3),
                        shell_faces[None].expand(B, Fs, 3)], 1)
-    fclass = torch.cat([face_class.reshape(B, -1),
+    fclass = torch.cat([face_class.reshape(B, O * Fm),
                         shell_class[None].expand(B, Fs)], 1)
-    fvalid = torch.cat([face_valid.reshape(B, -1),
+    fvalid = torch.cat([face_valid.reshape(B, O * Fm),
                         bank.shell_fvalid[shell_idx][None].expand(B, Fs)], 1)
     return SceneBuffers(verts=verts, faces=faces, face_class=fclass,
                         face_valid=fvalid, vert_slots=vert_slots)

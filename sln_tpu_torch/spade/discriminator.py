@@ -1,15 +1,17 @@
-"""SPADE discriminators, the training side (counterpart of
-sln_tpu/spade/discriminator.py; reference models/SPADE_related.py
-MultiscaleDiscriminator :397-447, NLayerDiscriminator :450-506, the MMD
-heads of NLayerDiscriminator_MMD :1237-1296).
+"""SPADE discriminators and the image encoder, the training side
+(counterpart of sln_tpu/spade/discriminator.py; reference
+models/SPADE_related.py MultiscaleDiscriminator :397-447,
+NLayerDiscriminator :450-506, the MMD heads of NLayerDiscriminator_MMD
+:1237-1296, ConvEncoder :595-642).
 
 NCHW. Submodule names are the JAX package's flax names (`discriminator_0`,
 `conv0`, `head`, `decide`, `z_out0`, `z_out1`), so its parameter trees
 carry across by name (spade/port.py). The quirks of the JAX package are
 kept: 4x4 convs with padding 2, instance norm with the biased variance
 (not on layer 0), a stride-1 last layer, and a 1x1 head with padding 1, so
-the logit map is 2 px larger than the last feature map.
-(`ConvEncoder`, :103 there, is not ported yet: ROADMAP §1 item 6.)
+the logit map is 2 px larger than the last feature map. ConvEncoder (the
+image -> (mu, logvar) posterior) is a module API, as in the JAX package:
+no trainer runs it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sln_tpu_torch.spade.generator import conv_math
+from sln_tpu_torch.spade.layers import resize_bilinear
 from sln_tpu_torch.spade.spectral import SpectralConv
 
 
@@ -113,3 +116,37 @@ class MultiscaleDiscriminator(nn.Module):
             if i + 1 < self.num_d:
                 x = avg_pool_down(x)
         return outs
+
+
+class ConvEncoder(nn.Module):
+    """Image -> (mu, logvar) of z (reference :595-642): the image resized
+    to 256 px, five stride-2 3x3 spectral convs each with the instance
+    norm and leaky 0.2 (the fifth's leaky and a sixth conv only where
+    crop_size >= 256), a spatial mean, leaky 0.2, and the two heads."""
+
+    def __init__(self, nef: int = 64, output_nc: int = 256,
+                 crop_size: int = 256, input_nc: int = 3):
+        super().__init__()
+        self.deep = crop_size >= 256
+        widths = [input_nc, nef, nef * 2, nef * 4, nef * 8, nef * 8]
+        for i in range(5):
+            self.add_module(f"layer{i + 1}", SpectralConv(
+                widths[i], widths[i + 1], 3, stride=2, padding=1))
+        if self.deep:
+            self.layer6 = SpectralConv(nef * 8, nef * 8, 3, stride=2,
+                                       padding=1)
+        self.fc_mu = nn.Linear(nef * 8, output_nc)
+        self.fc_var = nn.Linear(nef * 8, output_nc)
+
+    @conv_math()
+    def forward(self, x: torch.Tensor, train: bool = False):
+        if x.shape[2] != 256 or x.shape[3] != 256:
+            x = resize_bilinear(x, 256, 256)
+        for i in range(5):
+            x = instance_norm(getattr(self, f"layer{i + 1}")(x, train))
+            if i < 4 or self.deep:
+                x = F.leaky_relu(x, 0.2)
+        if self.deep:
+            x = self.layer6(x, train)
+        x = F.leaky_relu(x.mean((2, 3)), 0.2)
+        return self.fc_mu(x), self.fc_var(x)

@@ -266,9 +266,10 @@ class SEBlock2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the mean accumulated in float32 and rounded once to x's dtype,
         # as jnp.mean does (PyTorch's CPU mean of bfloat16 rounds the sum
-        # before it divides)
-        mean = x.mean((2, 3), dtype=torch.float32).to(x.dtype)
-        gate = self.fc(mean.float())
+        # before it divides); a float64 stream stays float64
+        acc = torch.promote_types(x.dtype, torch.float32)
+        mean = x.mean((2, 3), dtype=acc).to(x.dtype)
+        gate = self.fc(mean.to(acc))
         return x * gate.to(x.dtype)[:, :, None, None]
 
 

@@ -42,8 +42,10 @@ def _flatten(tree: Mapping, prefix=()):
 
 def params_from_jax(g_params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax params (numpy or array leaves) of a SPADE module -> the
-    state_dict of its port (SPADEGenerator4, MultiscaleDiscriminator,
-    ConvEncoderPSPSEMMD, SpectralConv)."""
+    state_dict of its port: any module of spade/ (the generators, the
+    discriminators and their MMD wrappers' `trunk` level, the encoders,
+    SpectralConv). A PadConv's flax `conv` is the port's submodule `1`,
+    SEBlock2's `fc1`/`fc2` its `fc.0`/`fc.2`; every other name is kept."""
     sd = {}
     for path, leaf in _flatten(g_params):
         a = np.array(leaf, np.float32)

@@ -60,8 +60,11 @@ class SpectralConv(nn.Module):
         """u from a normal draw, normalised, then 8 power-iteration steps,
         so sigma is converged from the first training step (the JAX
         package's init)."""
+        # drawn where the generator lives (a CPU generator for a module on
+        # the card: init_like_jax), then moved to the module's device
         u = torch.randn(self.u.shape, generator=generator,
-                        device=self.u.device)
+                        device=generator.device if generator is not None
+                        else self.u.device).to(self.u.device)
         u, v = power_iteration(self.w_mat(), u / torch.linalg.vector_norm(u),
                                8, self.eps)
         self.u, self.v = u, v

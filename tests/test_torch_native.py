@@ -369,6 +369,56 @@ def test_packer_adversarial_cases_match_jax():
     assert results[-2:] == ["rejected", "accepted"]
 
 
+_ROOM = ('{"bbox": [1, 2, 3], "valid_objects": [{"type": "bed", '
+         '"new_bbox": [[0, 0, 0], [%s, 1, 1]], "rotation": 3}]}')
+# texts on which the JAX library (strtod numbers, rooms keyed by int(key))
+# and json + tensorize_rooms part: the port's packer follows json
+GRAMMAR_CASES = (
+    [('{"1": %s}' % (_ROOM % num), ok) for num, ok in [
+        ("+0.5", False), ("01", False), ("00", False), ("0x1", False),
+        (".5", False), ("1.", False), ("1e", False), ("-", False),
+        ("inf", False), ("-inf", False), ("nan", False), ("-NaN", False),
+        ("NaN", True), ("Infinity", True), ("-Infinity", True),
+        ("-0", True), ("1E+5", True), ("-1.5e-3", True)]]
+    + [('{"1": %s, "01": %s}' % (_ROOM % 1, _ROOM % 2), False),
+       ('{"01": %s, "1": %s, "2": %s}' % (_ROOM % 1, _ROOM % 2, _ROOM % 3),
+        False),
+       # a repeated key inside a room: json.loads keeps the last
+       ('{"1": {"bbox": [1, 2, 3], "bbox": [4, 5, 6], '
+        '"valid_objects": []}}', True)])
+
+
+@pytest.mark.parametrize("text,packed", GRAMMAR_CASES)
+def test_packer_takes_exactly_what_json_takes(text, packed, tmp_path):
+    """The packer accepts a text only as json.loads parses it and packs it
+    as tensorize_rooms does; a text it refuses goes through
+    tensorize_file's json path, which gives json's rooms or json's
+    error."""
+    got = native.pack_rooms(text, 8)
+    assert (got is not None) == packed, text
+    py = _python_pack(text, 8)
+    path = tmp_path / "rooms.json"
+    path.write_text(text)
+    if isinstance(py, type):
+        assert got is None
+        with pytest.raises(py):
+            tensorize.tensorize_file(str(path), 8)
+        return
+    for arrays in ([got] if packed else []) + [
+            tensorize.tensorize_file(str(path), 8)]:
+        for k in ARRAY_KEYS:
+            assert arrays[k].dtype == py[k].dtype, k
+            np.testing.assert_array_equal(arrays[k], py[k], err_msg=k)
+
+
+def test_packer_repeated_room_ids_fall_back_to_two_rooms(tmp_path):
+    path = tmp_path / "rooms.json"
+    path.write_text('{"1": %s, "01": %s}' % (_ROOM % 1, _ROOM % 2))
+    got = tensorize.tensorize_file(str(path), 8)
+    assert got["room_ids"].tolist() == [1, 1]
+    assert got["boxes"][:, 0, 3].tolist() == [1.0, 2.0]
+
+
 def test_packer_mutations_match_jax():
     """300 byte flips, truncations and splices of valid room JSON."""
     base = json.dumps(jsyn.generate_rooms(6, seed=11))
