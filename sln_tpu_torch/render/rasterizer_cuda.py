@@ -38,6 +38,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from sln_tpu_torch import trace
 from sln_tpu_torch.render.rasterizer import FaceGeometry
 
 # fdata row layout
@@ -71,16 +72,22 @@ CULL_LOGIT = 144.0
 # to reach every row, since 1 + halo / inradius would overflow
 MIN_INRADIUS_PX = 1e-4
 
-# kernel launches, counted where each wrapper launches its kernels: two per
-# forward call (item, merge), three per backward call (item, reduce,
-# combine)
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
+# kernel launches, counted in the trace registry where each wrapper
+# launches its kernels: two per forward call (item, merge), three per
+# backward call (item, reduce, combine); read as FWD_LAUNCHES and
+# BWD_LAUNCHES
+_LAUNCH_COUNTERS = {"FWD_LAUNCHES": "raster.fwd_launches",
+                    "BWD_LAUNCHES": "raster.bwd_launches"}
+
+
+def __getattr__(name: str) -> int:
+    if name in _LAUNCH_COUNTERS:
+        return trace.counters().get(_LAUNCH_COUNTERS[name], 0)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    FWD_LAUNCHES = BWD_LAUNCHES = 0
+    trace.reset(*_LAUNCH_COUNTERS.values())
 
 
 def pack_faces(geom: FaceGeometry, num_classes: int
@@ -427,7 +434,6 @@ def raster_fwd_cuda(fdata, onehot, counts, clist, image_size: int,
                     sigma: float, gamma: float, z_far: float):
     """Launch the forward (its item kernel, then its merge kernel); outputs
     as raster_fwd_plain."""
-    global FWD_LAUNCHES
     from sln_tpu_torch import kernels
 
     B, Fp, C, T, K = _check_packed(fdata, onehot, counts, clist, image_size)
@@ -449,7 +455,7 @@ def raster_fwd_cuda(fdata, onehot, counts, clist, image_size: int,
             Fp, C, image_size, 1.0 / sigma, 1.0 / gamma, z_far,
             ctypes.c_void_p(stream))
     _raise_on(err, "sln_raster_fwd")
-    FWD_LAUNCHES += 2       # the item and merge kernels
+    trace.count("raster.fwd_launches", 2)   # the item and merge kernels
     return depth, classes, res
 
 
@@ -459,7 +465,6 @@ def raster_bwd_cuda(fdata, onehot, counts, clist, res, classes, g_depth,
     """Launch the backward (its item kernel, then its reduce and combine
     kernels, which add each face's per-tile sums in tile order: the same
     bits from run to run); output as raster_bwd_plain."""
-    global BWD_LAUNCHES
     from sln_tpu_torch import kernels
 
     B, Fp, C, T, K = _check_packed(fdata, onehot, counts, clist, image_size)
@@ -482,7 +487,7 @@ def raster_bwd_cuda(fdata, onehot, counts, clist, res, classes, g_depth,
             _ptr(scratch), B, T, K, Fp, C, image_size, 1.0 / sigma,
             1.0 / gamma, z_far, ctypes.c_void_p(stream))
     _raise_on(err, "sln_raster_bwd")
-    BWD_LAUNCHES += 3       # the item, reduce and combine kernels
+    trace.count("raster.bwd_launches", 3)   # item, reduce, combine
     return fgrad
 
 
@@ -506,9 +511,10 @@ class RasterizeCore(torch.autograd.Function):
     def backward(ctx, g_depth, g_classes):
         fdata, onehot, counts, clist, res, classes = ctx.saved_tensors
         bwd = raster_bwd_cuda if fdata.is_cuda else raster_bwd_plain
-        fgrad = bwd(fdata, onehot, counts, clist, res, classes,
-                    g_depth.contiguous(), g_classes.contiguous(),
-                    *ctx.consts)
+        with trace.span("sln.raster.bwd"):
+            fgrad = bwd(fdata, onehot, counts, clist, res, classes,
+                        g_depth.contiguous(), g_classes.contiguous(),
+                        *ctx.consts)
         return (fgrad, torch.zeros_like(onehot), None, None, None, None,
                 None, None)
 
@@ -531,6 +537,7 @@ def prepare_faces(geom: FaceGeometry, num_classes: int, image_size: int,
     fdata, onehot = pack_faces(geom, num_classes)
     counts, clist = chunk_lists(chunk_tile_mask(geom, image_size, sigma,
                                                 gamma))
+    trace.count_tensor("raster.dispatched_pairs", counts, FC * PT)
     return fdata, onehot, counts, clist
 
 
@@ -540,9 +547,11 @@ def soft_rasterize_cuda(geom: FaceGeometry, num_classes: int,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same function as rasterizer.soft_rasterize, on culled face chunks.
     Returns (depth (B, S, S), classes (B, S, S, C))."""
-    fdata, onehot, counts, clist = prepare_faces(geom, num_classes,
-                                                 image_size, sigma, gamma)
-    depth, classes = rasterize_core(fdata, onehot, counts, clist,
-                                    image_size, sigma, gamma, z_far)
+    with trace.span("sln.render.prepare"):
+        fdata, onehot, counts, clist = prepare_faces(geom, num_classes,
+                                                     image_size, sigma, gamma)
+    with trace.span("sln.render.raster"):
+        depth, classes = rasterize_core(fdata, onehot, counts, clist,
+                                        image_size, sigma, gamma, z_far)
     B, S = fdata.shape[0], image_size
     return depth.reshape(B, S, S), classes.reshape(B, S, S, num_classes)

@@ -17,6 +17,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from sln_tpu_torch import trace
 from sln_tpu_torch.config import RenderConfig
 from sln_tpu_torch.data.vocab import (DO_NOT_RENDER, NYU40_CLASSES,
                                       OBJECT_IDX_TO_NAME)
@@ -268,10 +269,19 @@ def render_channels(scene: SceneBuffers, room_dims: torch.Tensor,
                     cfg: RenderConfig, bank: DeviceBank) -> torch.Tensor:
     """Rasterize and build the (B, 1 + 40 + 29, S, S) stack of
     diff_render.py:366-434."""
-    geom = scene_geometry(scene, room_dims, cfg)
+    with trace.span("sln.render.geometry"):
+        geom = scene_geometry(scene, room_dims, cfg)
     depth, classes = soft_rasterize_cuda(
         geom, NUM_RENDER_CLASSES, cfg.camera.image_size,
         sigma=cfg.sigma_px, gamma=cfg.gamma, z_far=cfg.z_far)
+    with trace.span("sln.render.channels"):
+        return _channel_stack(depth, classes, cfg, bank)
+
+
+def _channel_stack(depth, classes, cfg: RenderConfig, bank: DeviceBank
+                   ) -> torch.Tensor:
+    """The rasterizer's depth (B, S, S) and classes (B, S, S, 32) -> the
+    (B, 70, S, S) stack."""
     classes = classes.permute(0, 3, 1, 2)                        # (B,32,S,S)
 
     # depth channel: infinity -> -1 (diff_render.py:367)
@@ -301,7 +311,9 @@ def render_layout(objs, boxes, angles, obj_mask, model_idx,
                   shell_idx: int = 0) -> torch.Tensor:
     """Batched end-to-end: assemble + rasterize + channel stack.
     Returns (B, 70, S, S)."""
-    scene = assemble_scene(objs, boxes, angles, obj_mask, model_idx, bank,
-                           shell_idx)
-    return render_channels(scene, room_dims_of(objs, boxes, obj_mask), cfg,
-                           bank)
+    with trace.span("sln.render.layout"):
+        with trace.span("sln.render.assemble"):
+            scene = assemble_scene(objs, boxes, angles, obj_mask, model_idx,
+                                   bank, shell_idx)
+            room_dims = room_dims_of(objs, boxes, obj_mask)
+        return render_channels(scene, room_dims, cfg, bank)

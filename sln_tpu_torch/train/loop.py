@@ -28,6 +28,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from sln_tpu_torch import trace
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import (GraphDraws, SizeInfo, build_graphs,
                                         draw_graph_randomness)
@@ -400,11 +401,15 @@ class _GraphedStep:
         static slots first, one device-to-device copy); the host reads
         nothing back in between. Returns the sum of total_loss."""
         with torch.no_grad():
-            torch._foreach_copy_(list(self.raw), list(raw))
-            self.total.zero_()
+            with trace.span("sln.train.stage"):
+                torch._foreach_copy_(list(self.raw), list(raw))
+                self.total.zero_()
             for step in draws:
-                torch._foreach_copy_(self.draw_slots, _draw_tensors(step))
-                self.graph.replay()
+                with trace.span("sln.train.stage"):
+                    torch._foreach_copy_(self.draw_slots,
+                                         _draw_tensors(step))
+                with trace.span("sln.train.replay"):
+                    self.graph.replay()
         return self.total.clone()
 
 
@@ -464,7 +469,9 @@ def make_train_scan(state: TrainState, cfg: Config, size_info: SizeInfo,
             draws = [step_draws(state.generator, cfg, state.step + i, B, O,
                                 device) for i in range(n)]
         if not captured or not captured[0].fits(raw, draws[0], kl_w):
-            captured[:] = [_GraphedStep(state, step_fn, raw, draws[0], kl_w)]
+            with trace.span("sln.train.capture"):
+                captured[:] = [_GraphedStep(state, step_fn, raw, draws[0],
+                                            kl_w)]
         total = captured[0].run(raw, draws)
         state.step += n
         return total

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sln_tpu_torch import trace
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import SizeInfo, build_graphs
 from sln_tpu_torch.data.vocab import NYU40_CLASSES
@@ -133,12 +134,14 @@ def render_scene_channels(batch, bank_host: assets.MeshBank,
                           bank: scene_lib.DeviceBank, rcfg) -> torch.Tensor:
     """Single-scene SceneBatch -> (70, S, S) render stack, meshes retrieved
     from the scene's own boxes (on the host)."""
-    dims = scene_lib.room_dims_of(batch.objs, batch.boxes, batch.obj_mask)
-    abs_boxes = batch.boxes * torch.cat([dims, dims], -1)[:, None]
-    midx = torch.as_tensor(
-        assets.retrieve_models(batch.objs.cpu().numpy(),
-                               abs_boxes.cpu().numpy(), bank_host),
-        device=batch.objs.device)
+    with trace.span("sln.shade.retrieve"):
+        dims = scene_lib.room_dims_of(batch.objs, batch.boxes,
+                                      batch.obj_mask)
+        abs_boxes = batch.boxes * torch.cat([dims, dims], -1)[:, None]
+        midx = torch.as_tensor(
+            assets.retrieve_models(batch.objs.cpu().numpy(),
+                                   abs_boxes.cpu().numpy(), bank_host),
+            device=batch.objs.device)
     return scene_lib.render_layout(batch.objs, batch.boxes,
                                    batch.angles.float(), batch.obj_mask,
                                    midx, bank, rcfg)[0]
@@ -327,22 +330,26 @@ def colorize(model: SPADEGenerator4, spade_input: torch.Tensor,
     group's size and its rows split over the data group; `seg_mods` runs
     once per rank; the images are all-gathered (every rank returns them
     all) and the padding dropped."""
-    sharded = mesh is not None and mesh.distributed
-    mods = model.seg_mods(spade_input[None])
-    imgs = []
-    for z in zs:
-        n = z.shape[0]
-        if sharded:
-            z = F.pad(z, (0, 0, 0, -n % mesh.data_size))
-            z = z[mesh.rows(z.shape[0])]
-        rgb = model.decode(mods, z)
-        if out_dtype == "uint8":
-            rgb = torch.round(((rgb + 1.0) * 0.5).clamp(0.0, 1.0)
-                              * 255.0).to(torch.uint8)
-        if sharded:
-            rgb = all_gather_rows(rgb, mesh)[:n]
-        imgs.append(rgb)
-    out = torch.cat(imgs)[:num_z].permute(0, 2, 3, 1).cpu().numpy()
+    with trace.span("sln.shade.colorize"):
+        sharded = mesh is not None and mesh.distributed
+        with trace.span("sln.shade.seg_mods"):
+            mods = model.seg_mods(spade_input[None])
+        imgs = []
+        for z in zs:
+            n = z.shape[0]
+            if sharded:
+                z = F.pad(z, (0, 0, 0, -n % mesh.data_size))
+                z = z[mesh.rows(z.shape[0])]
+            with trace.span("sln.shade.decode"):
+                rgb = model.decode(mods, z)
+            if out_dtype == "uint8":
+                rgb = torch.round(((rgb + 1.0) * 0.5).clamp(0.0, 1.0)
+                                  * 255.0).to(torch.uint8)
+            if sharded:
+                rgb = all_gather_rows(rgb, mesh)[:n]
+            imgs.append(rgb)
+        with trace.span("sln.shade.to_host"):
+            out = torch.cat(imgs)[:num_z].permute(0, 2, 3, 1).cpu().numpy()
     return out if out_dtype == "uint8" else (out + 1.0) / 2.0
 
 

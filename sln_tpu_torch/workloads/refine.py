@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sln_tpu_torch import trace
 from sln_tpu_torch.config import Config
 from sln_tpu_torch.data.augment import SizeInfo, build_graphs
 from sln_tpu_torch.data.batch import SceneBatch
@@ -280,18 +281,26 @@ class Refiner:
     def forward(self, noise: torch.Tensor):
         """(total, aux dict, imgs (B, 70, S, S), boxes_pred, angles)."""
         ref, batch = self.ref, self.batch
-        boxes_pred, angle_lp = self.model.decode(self.z, batch)
-        boxes_pred = fix_grad(boxes_pred)                  # hook :288
-        # clamp the room row to GT (:291), which also kills its gradient
-        boxes_pred = torch.where(self.room_mask[..., None],
-                                 self.room_row_gt, boxes_pred)
-        ang = softargmax(angle_lp, ref.softargmax_beta) + noise
-        ang = quad_grad(ang)                               # hook :297
-        ang = torch.where(self.room_mask, self.angles_gt, ang)   # :298
+        with trace.span("sln.refine.decode"):
+            boxes_pred, angle_lp = self.model.decode(self.z, batch)
+            boxes_pred = fix_grad(boxes_pred)                  # hook :288
+            # clamp the room row to GT (:291), which also kills its gradient
+            boxes_pred = torch.where(self.room_mask[..., None],
+                                     self.room_row_gt, boxes_pred)
+            ang = softargmax(angle_lp, ref.softargmax_beta) + noise
+            ang = quad_grad(ang)                               # hook :297
+            ang = torch.where(self.room_mask, self.angles_gt, ang)   # :298
 
         imgs = scene_lib.render_layout(batch.objs, boxes_pred, ang,
                                        batch.obj_mask, self.model_idx,
                                        self.bank, self.rcfg)
+        with trace.span("sln.refine.losses"):
+            total, aux = self._losses(imgs, boxes_pred)
+        return total, aux, imgs, boxes_pred, ang
+
+    def _losses(self, imgs, boxes_pred):
+        """(total, aux dict) of a render and its boxes."""
+        ref = self.ref
         depth_loss, sem_loss = refine_losses_pre(imgs, *self.tg_pyr,
                                                  ref.pyramid_sizes)
         depth_loss, sem_loss = depth_loss.mean(), sem_loss.mean()
@@ -318,7 +327,7 @@ class Refiner:
                  + size_total * ref.size_loss_weight)
         aux = {"depth_loss": depth_loss, "semantic_loss": sem_loss,
                "size_loss": size_total, "total": total}
-        return total, aux, imgs, boxes_pred, ang
+        return total, aux
 
     def _global_aux(self, aux: Dict[str, torch.Tensor], grads=()):
         """The losses detached, summed over the ranks under a mesh with
@@ -336,15 +345,20 @@ class Refiner:
              ) -> Dict[str, torch.Tensor]:
         """One optimization step, with step k's noise unless one is given;
         returns the step's detached losses."""
-        noise = self.noise(self.k) if noise is None else noise[self.rows]
-        self.k += 1
-        self.opt.zero_grad(set_to_none=True)
-        with fp32_accumulation():
-            total, aux, *_ = self.forward(noise)
-            total.backward()
-        aux = self._global_aux(aux, [p.grad for p in self.model.parameters()
-                                     if p.grad is not None])
-        self.opt.step()
+        with trace.span("sln.refine.step"):
+            noise = (self.noise(self.k) if noise is None
+                     else noise[self.rows])
+            self.k += 1
+            self.opt.zero_grad(set_to_none=True)
+            with fp32_accumulation():
+                total, aux, *_ = self.forward(noise)
+                with trace.span("sln.refine.backward"):
+                    total.backward()
+            with trace.span("sln.refine.update"):
+                aux = self._global_aux(aux, [
+                    p.grad for p in self.model.parameters()
+                    if p.grad is not None])
+                self.opt.step()
         return aux
 
     def run(self, num_iters: int) -> Dict[str, torch.Tensor]:
