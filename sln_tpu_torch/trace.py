@@ -18,10 +18,15 @@ Counters are host integers in one registry, read with `counters()`:
     raster.dispatched_pairs   the (pixel, face) pairs the forward's chunk
         lists dispatch, sum(counts) x FC x PT per render (counted only
         while a profiler records)
+    refine.graph_replays   refine steps run as a replay of the step's
+        CUDA graph (counted only while a profiler records)
 
 A counter that would need a device value (`count_tensor`) keeps a
 reference to the value's tensor and sums it when `counters()` is read,
 after the traced work, so counting adds no kernel and no sync to it.
+
+A CUDA graph's capture launches nothing, so what it counts is put aside
+(`tally()`) and counted again by each replay (`Tally.replay`).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -37,6 +42,12 @@ _OFF = contextlib.nullcontext()
 _lock = threading.Lock()
 _counts: Dict[str, int] = {}
 _held: Dict[str, List[Tuple[torch.Tensor, int]]] = {}
+_tally: Optional["Tally"] = None
+
+
+def recording() -> bool:
+    """Whether a torch.profiler session records."""
+    return torch._C._autograd._profiler_enabled()
 
 
 class _Span(torch.profiler.record_function):
@@ -60,25 +71,64 @@ def span(name: str):
     """A context manager: a profiler range called `name` (an `sln.` name)
     that counts its calls and host time, while a profiler records; else a
     shared no-op."""
-    if not torch._C._autograd._profiler_enabled():
+    if not recording():
         return _OFF
     return _Span(name)
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add n to host counter `name`."""
+    """Add n to host counter `name` (to the open tally, inside `tally()`)."""
     with _lock:
-        _counts[name] = _counts.get(name, 0) + n
+        into = _counts if _tally is None else _tally.counts
+        into[name] = into.get(name, 0) + n
 
 
 def count_tensor(name: str, t: torch.Tensor, scale: int = 1) -> None:
     """While a profiler records, add t.sum() x scale to counter `name`
     when `counters()` is next read; t must not be written to after. With
-    no profiler, nothing is kept."""
-    if not torch._C._autograd._profiler_enabled():
-        return
+    no profiler, nothing is kept. Inside `tally()` t goes to the tally,
+    profiler or not."""
     with _lock:
-        _held.setdefault(name, []).append((t, scale))
+        if _tally is not None:
+            _tally.tensors.append((name, t, scale))
+        elif recording():
+            _held.setdefault(name, []).append((t, scale))
+
+
+class Tally:
+    """What a CUDA graph's capture counted: host counts, and the graph's
+    static tensors that count_tensor was given (each replay overwrites
+    them)."""
+
+    def __init__(self):
+        self.counts: Dict[str, int] = {}
+        self.tensors: List[Tuple[str, torch.Tensor, int]] = []
+
+    def replay(self) -> None:
+        """Count one replay of the graph: its counts, and while a profiler
+        records, a copy of each static tensor, taken now so that later
+        replays leave it alone."""
+        for name, n in self.counts.items():
+            count(name, n)
+        if recording():
+            for name, t, scale in self.tensors:
+                count_tensor(name, t.clone(), scale)
+
+
+@contextlib.contextmanager
+def tally():
+    """Inside, count() and count_tensor() add to the yielded Tally and not
+    to the registry, on every thread (autograd runs a card's backward on a
+    thread of its own): wrap a graph's capture in it."""
+    global _tally
+    inner = Tally()
+    with _lock:
+        outer, _tally = _tally, inner
+    try:
+        yield inner
+    finally:
+        with _lock:
+            _tally = outer
 
 
 def counters() -> Dict[str, int]:

@@ -358,3 +358,103 @@ def test_gan_step_gives_the_same_bits_twice(card):
     assert all(torch.equal(a, b) for a, b in zip(l1, l2))
     assert len(s1) == len(s2)
     assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+
+
+REFINE_STEPS = 8
+
+
+def _refine_two_rooms(card, graphed: bool):
+    """Two rooms refined back to back, REFINE_STEPS steps each, under a
+    profiler, from the same weights, z0 and noise: through Refiner.step
+    (eager at step 0, then its CUDA graph) or through its eager step every
+    time. Per room: the steps' losses, z, every parameter and momentum
+    buffer after, the replays and the rasterizer's counters."""
+    import copy
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sln_tpu_torch import trace
+    from sln_tpu_torch.config import DataConfig, default_config
+    from sln_tpu_torch.models.vae import Sg2ScVAE
+    from sln_tpu_torch.render import assets, scene as scene_lib
+    from sln_tpu_torch.tools.eval_refinement_quality import val_batch
+    from sln_tpu_torch.workloads import refine
+
+    cfg = default_config()
+    cfg = cfg.replace(
+        data=DataConfig(max_objects=16, max_triples=48, max_on_rels=16),
+        model=dataclasses.replace(cfg.model, embedding_dim=16,
+                                  gconv_num_layers=2),
+        refine=dataclasses.replace(cfg.refine, render_size=64, lr_z=2e-2))
+    torch.manual_seed(0)
+    model = Sg2ScVAE(cfg.model).to(card).eval()
+    rooms = val_batch(cfg, 2, card)
+    rcfg = refine.refine_render_config(cfg)
+    bank_host = assets.build_procedural_bank(cfg.render.mesh_subdiv)
+    bank = scene_lib.device_bank(bank_host, cfg.render.shell_subdiv,
+                                 device=card)
+    out = []
+    for j in range(2):
+        batch = rooms.select(slice(j, j + 1))
+        with torch.no_grad():
+            z0, _ = model.encode(batch)
+        ins = refine.prepare_refine_inputs(batch, bank_host, bank, rcfg)
+        r = refine.make_refine_step(copy.deepcopy(model), batch, ins[0],
+                                    bank, *ins[1:], cfg, z0)
+        assert r.graphed
+        noise = 0.25 * torch.randn(
+            (REFINE_STEPS,) + tuple(batch.objs.shape), device=card,
+            generator=torch.Generator(card).manual_seed(j))
+        trace.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            losses = [r.step(noise[k]) if graphed else r._step(noise[k])
+                      for k in range(REFINE_STEPS)]
+            torch.cuda.synchronize()
+        counts = trace.counters()
+        moms = [r.opt.state[p]["momentum_buffer"]
+                for group in r.opt.param_groups for p in group["params"]
+                if "momentum_buffer" in r.opt.state[p]]
+        out.append({
+            "losses": losses, "z": r.z.detach().clone(),
+            "params": [p.detach().clone() for p in r.model.parameters()],
+            "moms": [m.clone() for m in moms],
+            "counts": {k: counts.get(k, 0) for k in (
+                "refine.graph_replays", "raster.fwd_launches",
+                "raster.bwd_launches", "raster.dispatched_pairs")}})
+    return out
+
+
+def test_graphed_refine_gives_the_eager_bits(card):
+    """The refine step replayed as a CUDA graph, two rooms back to back (the
+    second room's graph in the memory pool the first one's used): each
+    step's losses, z, every decoder parameter and every momentum buffer
+    the eager step's bits; each step's losses tensors of their own; 7
+    replays a room; the rasterizer's launches and dispatched pairs counted
+    as the eager steps count them."""
+    graphed = _refine_two_rooms(card, True)
+    eager = _refine_two_rooms(card, False)
+    for g, e in zip(graphed, eager):
+        for lg, le in zip(g["losses"], e["losses"]):
+            assert lg.keys() == le.keys()
+            for k in lg:
+                assert torch.equal(lg[k], le[k]), k
+        assert len({d["total"].data_ptr() for d in g["losses"]}) == \
+            REFINE_STEPS
+        assert len({float(d["total"]) for d in g["losses"]}) == REFINE_STEPS
+        assert torch.equal(g["z"], e["z"])
+        assert len(g["params"]) == len(e["params"])
+        assert all(torch.equal(a, b) for a, b in zip(g["params"],
+                                                     e["params"]))
+        assert len(g["moms"]) == len(e["moms"]) > 1
+        assert all(torch.equal(a, b) for a, b in zip(g["moms"], e["moms"]))
+        assert g["counts"]["refine.graph_replays"] == REFINE_STEPS - 1
+        assert e["counts"]["refine.graph_replays"] == 0
+        assert g["counts"]["raster.fwd_launches"] == 2 * REFINE_STEPS
+        assert g["counts"]["raster.bwd_launches"] == 3 * REFINE_STEPS
+        assert g["counts"]["raster.dispatched_pairs"] > 0
+        assert {k: v for k, v in g["counts"].items()
+                if k != "refine.graph_replays"} == \
+            {k: v for k, v in e["counts"].items()
+             if k != "refine.graph_replays"}

@@ -304,3 +304,48 @@ def test_snapshot_leaves_the_loop_noise_alone(slice_setup):
             "cpu"))
     assert torch.equal(ang, ang0)
     assert torch.equal(snapped.noise(0), fresh.noise(0))
+
+
+def test_cpu_refiner_steps_eagerly(slice_setup):
+    """On CPU tensors the step runs eagerly, every time: no graph, no
+    replay counted under a profiler, and run()'s history holds each
+    step's own losses."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sln_tpu_torch import trace
+
+    s = slice_setup
+    tbank, (midx, target, size_t, room) = _port_inputs(s)
+    refiner = tref.make_refine_step(
+        copy.deepcopy(s["tmodel"]), s["tb"], midx, tbank, target, size_t,
+        room, s["cfg_t"], torch.as_tensor(s["z0"]))
+    assert not refiner.graphed
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        hist = refiner.run(ITERS)
+    counts = trace.counters()
+    assert counts["sln.refine.step.calls"] == ITERS
+    assert counts.get("refine.graph_replays", 0) == 0
+    assert "sln.refine.capture.calls" not in counts
+    assert refiner._graph is None
+    for k, v in hist.items():
+        assert v.shape == (ITERS,), k
+    assert len(set(hist["total"].tolist())) == ITERS
+
+
+@pytest.mark.parametrize("device,distributed,graphed", [
+    ("cuda", None, True),
+    ("cuda", True, False),    # the mesh's step all-reduces inside
+    ("cuda", False, True),    # no process group: one process
+    ("cpu", None, False),
+    ("cpu", True, False),
+])
+def test_graph_only_on_the_card_off_a_mesh(device, distributed, graphed):
+    """Refiner.replays: the step replays a CUDA graph on the card with no
+    process group, and runs eagerly on the CPU or under a mesh's group."""
+    from sln_tpu_torch.parallel.mesh import Mesh
+
+    mesh = None if distributed is None else Mesh(
+        rank=0, world_size=2, device=torch.device(device),
+        backend="gloo" if distributed else None)
+    assert tref.Refiner.replays(torch.device(device), mesh) == graphed

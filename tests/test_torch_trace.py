@@ -2,9 +2,11 @@
 without a profiler; under one, the refine step's, the render's and the
 shading's spans nest as the layers do; the dispatched-pairs counter against
 a count by hand; the rasterizer's launch counters under their old names;
-each span's calls and host time counted while a profiler records."""
+each span's calls and host time counted while a profiler records; a graph
+capture's counts put aside and counted again by each replay."""
 
 import dataclasses
+import threading
 
 import pytest
 import torch
@@ -156,6 +158,40 @@ def test_launch_counters_keep_their_names():
     assert (rc.FWD_LAUNCHES, rc.BWD_LAUNCHES) == (0, 0)
     with pytest.raises(AttributeError):
         rc.NO_SUCH_COUNTER
+
+
+def test_tally_counts_a_capture_once_per_replay():
+    """Inside trace.tally() counts (from any thread) and held tensors go to
+    the tally, profiler or not, and nothing to the registry; each
+    Tally.replay counts them again, the tensors only while a profiler
+    records and as they read when the replay is counted."""
+    trace.reset()
+    static = torch.tensor([3, 4], dtype=torch.int32)
+    with trace.tally() as tally:
+        trace.count("raster.fwd_launches", 2)
+        worker = threading.Thread(target=trace.count,
+                                  args=("raster.bwd_launches", 3))
+        worker.start()
+        worker.join()
+        trace.count_tensor("raster.dispatched_pairs", static, 10)
+    assert tally.counts == {"raster.fwd_launches": 2,
+                            "raster.bwd_launches": 3}
+    assert [(n, s) for n, _, s in tally.tensors] == [
+        ("raster.dispatched_pairs", 10)]
+    assert trace.counters() == {}
+    tally.replay()
+    assert trace.counters() == {"raster.fwd_launches": 2,
+                                "raster.bwd_launches": 3}
+    with profile(activities=[ProfilerActivity.CPU]):
+        tally.replay()
+        static.fill_(0)           # the next replay overwrites it
+        tally.replay()
+    counts = trace.counters()
+    assert (counts["raster.fwd_launches"], counts["raster.bwd_launches"]) \
+        == (6, 9)
+    assert counts["raster.dispatched_pairs"] == 70
+    trace.count("raster.fwd_launches")
+    assert trace.counters()["raster.fwd_launches"] == 7
 
 
 @pytest.mark.parametrize("num_z,z_chunk", [(5, 2), (4, 4)])
