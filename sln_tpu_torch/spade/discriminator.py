@@ -9,7 +9,11 @@ NCHW. Submodule names are the JAX package's flax names (`discriminator_0`,
 carry across by name (spade/port.py). The quirks of the JAX package are
 kept: 4x4 convs with padding 2, instance norm with the biased variance
 (not on layer 0), a stride-1 last layer, and a 1x1 head with padding 1, so
-the logit map is 2 px larger than the last feature map. ConvEncoder (the
+the logit map is 2 px larger than the last feature map. `gaugan=True`
+gives GauGAN's form instead (NVlabs/SPADE models/networks/discriminator.py,
+norm_D 'spectralinstance'): a plain conv0, spectral conv1.. without bias,
+a plain 4x4 stride-1 head with padding 2, and the same depth at every
+scale. ConvEncoder (the
 image -> (mu, logvar) posterior) is a module API, as in the JAX package:
 no trainer runs it.
 """
@@ -45,28 +49,35 @@ class NLayerDiscriminator(nn.Module):
     """pix2pixHD discriminator with spectral-instance norm. forward returns
     the intermediate features and, last, the logit map; with mmd_nz > 0,
     last the (logits, z) pair of the MMD variant's decide and z_out heads
-    (z the spatial mean of a (B, mmd_nz) map)."""
+    (z the spatial mean of a (B, mmd_nz) map). `gaugan=True`: GauGAN's
+    layers (plain conv0 and 4x4 head, spectral convs without bias)."""
 
     def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3,
-                 mmd_nz: int = 0):
+                 mmd_nz: int = 0, gaugan: bool = False):
         super().__init__()
-        self.n_layers, self.mmd_nz = n_layers, mmd_nz
+        if gaugan and mmd_nz:
+            raise ValueError("GauGAN's discriminator has no MMD heads")
+        self.n_layers, self.mmd_nz, self.gaugan = n_layers, mmd_nz, gaugan
         nf = ndf
-        self.conv0 = SpectralConv(input_nc, nf, 4, stride=2, padding=2)
+        self.conv0 = (nn.Conv2d(input_nc, nf, 4, 2, padding=2) if gaugan
+                      else SpectralConv(input_nc, nf, 4, stride=2, padding=2))
         for n in range(1, n_layers):
             prev, nf = nf, min(nf * 2, 512)
             stride = 1 if n == n_layers - 1 else 2
-            self.add_module(f"conv{n}", SpectralConv(prev, nf, 4, stride,
-                                                     padding=2))
+            self.add_module(f"conv{n}", SpectralConv(
+                prev, nf, 4, stride, padding=2, bias=not gaugan))
         if mmd_nz > 0:
             self.decide = nn.Conv2d(nf, 1, 1)
             self.z_out0 = nn.Conv2d(nf, nf, 1)
             self.z_out1 = nn.Conv2d(nf, mmd_nz, 1)
+        elif gaugan:
+            self.head = nn.Conv2d(nf, 1, 4, padding=2)
         else:
             self.head = nn.Conv2d(nf, 1, 1, padding=1)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> list:
-        h = F.leaky_relu(self.conv0(x, train), 0.2)
+        h = F.leaky_relu(self.conv0(x) if self.gaugan
+                         else self.conv0(x, train), 0.2)
         results = [h]
         for n in range(1, self.n_layers):
             h = getattr(self, f"conv{n}")(h, train)
@@ -97,15 +108,17 @@ def instance_normed_biases(module: nn.Module) -> set:
 class MultiscaleDiscriminator(nn.Module):
     """num_d discriminators on a downsampled pyramid, each one layer
     shallower than the one before (reference :397-447); mmd_nz > 0 gives
-    each the MMD heads (reference MultiscaleDiscriminator_MMD_2)."""
+    each the MMD heads (reference MultiscaleDiscriminator_MMD_2).
+    `gaugan=True`: GauGAN's layers, n_layers at every scale."""
 
     def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3,
-                 num_d: int = 2, mmd_nz: int = 0):
+                 num_d: int = 2, mmd_nz: int = 0, gaugan: bool = False):
         super().__init__()
         self.num_d = num_d
         for i in range(num_d):
             self.add_module(f"discriminator_{i}", NLayerDiscriminator(
-                input_nc, ndf, max(n_layers - i, 1), mmd_nz))
+                input_nc, ndf, n_layers if gaugan else max(n_layers - i, 1),
+                mmd_nz, gaugan))
 
     @conv_math()
     def forward(self, x: torch.Tensor, train: bool = False

@@ -8,6 +8,10 @@ optax.adam(lr, b1=0.0, b2=0.9): torch.optim.Adam with betas (0.0, 0.9),
 eps 1e-8. Each step runs with conv_math (float32) in force through its
 backward passes too, and leaves each network's gradients of this step in
 `.grad` after its optimizer has stepped.
+
+`GauganTrainer` is GauGAN's step (NVlabs/SPADE pix2pix_model.py,
+pix2pix_trainer.py), the generator's update first; it has no counterpart
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sln_tpu_torch import trace
 from sln_tpu_torch.spade.generator import conv_math
+from sln_tpu_torch.spade.vgg import vgg_loss
 
 
 def gan_loss(logits: List[list], target_is_real: bool,
@@ -240,3 +246,110 @@ def make_mmd_gan_train_step(state: GanState, gan_mode: str = "hinge",
                 "e_loss": e_loss.detach()}
 
     return step
+
+
+def gaugan_feature_matching(fake_feats: List[list], real_feats: List[list]
+                            ) -> torch.Tensor:
+    """GauGAN's feature matching: mean L1 of every intermediate layer
+    against the real's (held constant), summed over the layers and
+    averaged over the discriminators."""
+    total = 0.0
+    for ff, rf in zip(fake_feats, real_feats):
+        for f, r in zip(ff[:-1], rf[:-1]):
+            total = total + (f - r.detach()).abs().mean()
+    return total / len(fake_feats)
+
+
+class GauganTrainer:
+    """GauGAN's training step on a (seg one-hot (B, C, H, W), real (B, 3,
+    H, W) in [-1, 1]) batch: `g_update` then `d_update`, both networks in
+    training mode throughout, under conv_math (float32) through the
+    backward passes.
+
+    * g_update: the fake with gradient; D once on the fake and the real
+      concatenated along the batch; hinge -mean D(fake) + lambda_feat x
+      feature matching (summed over layers, averaged over scales) +
+      lambda_vgg x the VGG loss of `vgg` (none where lambda_vgg is 0);
+      the gradients to G's parameters alone; Adam.
+    * d_update: the fake again without gradient (G's spectral vectors and
+      running statistics advance a second time); D once on the detached
+      fake and the real; hinge; the gradients to D's parameters; Adam.
+
+    Each update returns its losses as device tensors; nothing is read
+    back to the host. Spans: sln.gan.step over sln.gan.g_update and
+    sln.gan.d_update, and inside them sln.gan.generate,
+    sln.gan.discriminate, sln.gan.vgg (forwards), sln.gan.backward and
+    sln.gan.adam. While a profiler records, `gan.images` counts the
+    images through G (with and without gradient)."""
+
+    def __init__(self, state: GanState, vgg: nn.Module,
+                 lambda_feat: float = 10.0, lambda_vgg: float = 10.0):
+        self.state, self.vgg = state, vgg
+        self.lambda_feat, self.lambda_vgg = lambda_feat, lambda_vgg
+        state.generator.train()
+        state.discriminator.train()
+
+    def _generate(self, seg: torch.Tensor) -> torch.Tensor:
+        with trace.span("sln.gan.generate"):
+            if trace.recording():
+                trace.count("gan.images", seg.shape[0])
+            return self.state.generator(seg)
+
+    def _discriminate(self, seg, fake, real):
+        """D on cat(fake, real) along the batch -> (fake's, real's) outputs
+        per scale."""
+        with trace.span("sln.gan.discriminate"):
+            x = torch.cat([torch.cat([seg, fake], 1),
+                           torch.cat([seg, real], 1)], 0)
+            out = self.state.discriminator(x, True)
+        B = fake.shape[0]
+        return ([[f[:B] for f in o] for o in out],
+                [[f[B:] for f in o] for o in out])
+
+    def _update(self, loss: torch.Tensor, net: nn.Module,
+                opt: torch.optim.Optimizer) -> None:
+        with trace.span("sln.gan.backward"):
+            _set_grads(loss, net)
+        with trace.span("sln.gan.adam"):
+            opt.step()
+
+    def g_update(self, batch) -> dict:
+        seg, real = batch
+        st = self.state
+        with trace.span("sln.gan.g_update"), conv_math():
+            fake = self._generate(seg)
+            pred_fake, pred_real = self._discriminate(seg, fake, real)
+            out = {"g_gan": gan_loss(pred_fake, True, False)}
+            if self.lambda_feat:
+                out["g_feat"] = self.lambda_feat * gaugan_feature_matching(
+                    pred_fake, pred_real)
+            if self.lambda_vgg:
+                with trace.span("sln.gan.vgg"):
+                    out["g_vgg"] = self.lambda_vgg * vgg_loss(self.vgg,
+                                                              fake, real)
+            g_loss = sum(out.values())
+            self._update(g_loss, st.generator, st.g_opt)
+        out["g_loss"] = g_loss
+        return {k: v.detach() for k, v in out.items()}
+
+    def d_update(self, batch) -> dict:
+        seg, real = batch
+        st = self.state
+        with trace.span("sln.gan.d_update"), conv_math():
+            with torch.no_grad():
+                fake = self._generate(seg)
+            pred_fake, pred_real = self._discriminate(seg, fake, real)
+            out = {"d_fake": gan_loss(pred_fake, False, True),
+                   "d_real": gan_loss(pred_real, True, True)}
+            d_loss = out["d_fake"] + out["d_real"]
+            self._update(d_loss, st.discriminator, st.d_opt)
+        out["d_loss"] = d_loss
+        return {k: v.detach() for k, v in out.items()}
+
+    def step(self, batch) -> dict:
+        """g_update then d_update on one batch -> every loss of both."""
+        with trace.span("sln.gan.step"):
+            out = self.g_update(batch)
+            out.update(self.d_update(batch))
+        self.state.step += 1
+        return out

@@ -8,8 +8,9 @@ which starts from its own draw and iterates whenever the module is in
 training mode: here u converges over 8 steps at init, as in the JAX
 package, and `train` is an argument of each call, so the discriminator's
 two forwards of a step each advance u and v, and the generator's step
-reads them without advancing. (Inference checkpoints arrive with sigma
-folded: spade/port.py.)
+reads them without advancing. While a profiler records, each training
+forward adds one to the counter `spectral.power_iters`. (Inference
+checkpoints arrive with sigma folded: spade/port.py.)
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from sln_tpu_torch import trace
 
 
 def power_iteration(w_mat: torch.Tensor, u: torch.Tensor, n: int,
@@ -75,6 +78,8 @@ class SpectralConv(nn.Module):
             # new buffer tensors, not in-place copies: an earlier forward of
             # this step may have saved the old u, v for its backward
             self.u, self.v = power_iteration(w_mat, self.u, 1, self.eps)
+            if trace.recording():
+                trace.count("spectral.power_iters")
         sigma = self.u @ (w_mat @ self.v)
         return F.conv2d(x, self.weight / sigma.clamp(min=self.eps),
                         self.bias, self.stride, self.padding)

@@ -12,6 +12,23 @@ discriminator heads and the ConvEncoderPSPSEMMD encoder). It takes the JAX
 driver's flags and --device (default cuda: it raises when there is no card,
 never falling back to the CPU).
 
+`--arch gaugan` trains GauGAN instead (NVlabs/SPADE, as it trains on
+ADE20K; the port's alone, the JAX package has no GauGAN), with GauGAN's
+own flag names and defaults (ngf, ndf 64, crop 256):
+
+    python -m sln_tpu_torch.tools.train_spade --arch gaugan \\
+        --synthetic_labels 64 --batch_size 8 --steps 50 --output_dir ckpts
+
+GauGAN's generator against its multiscale discriminator (--num_D,
+--n_layers_D), hinge + --lambda_feat x feature matching + --lambda_vgg x
+the VGG19 loss (--no_vgg_loss sets --lambda_vgg 0; --vgg_weights a
+torchvision VGG19 state_dict, else seeded weights). Its data are integer
+label maps, ids 0..label_nc-1 and label_nc for don't-care
+(--contain_dontcare_label, on by default), one-hotted on the device each
+step: `--synthetic_labels N` seeded Voronoi maps with per-class colours
+made on the device (spade/labels.py), or `--pairs_dir` .npz files with
+`label` (H, W) and `rgb` (H, W, 3 in [-1, 1]).
+
 Data: `--synthetic N` renders N rooms through the port's rasterizer (the
 CUDA forward kernel on the card) into (seg, rgb) pairs with the
 deterministic shading target (workloads/gan_shade.py); `--pairs_dir`
@@ -37,17 +54,22 @@ import torch
 
 from sln_tpu_torch import resolve_device
 from sln_tpu_torch.config import default_config
+from sln_tpu_torch.spade import labels as label_maps
 from sln_tpu_torch.spade import port
+from sln_tpu_torch.spade.classic import gaugan_generator, init_weights
 from sln_tpu_torch.spade.discriminator import MultiscaleDiscriminator
 from sln_tpu_torch.spade.generator import SPADEGenerator4
-from sln_tpu_torch.spade.losses import (GanState, make_gan_train_step,
+from sln_tpu_torch.spade.losses import (GanState, GauganTrainer,
+                                        make_gan_train_step,
                                         make_mmd_gan_train_step)
+from sln_tpu_torch.spade.vgg import VGG19Features, init_vgg19, load_vgg19
 from sln_tpu_torch.workloads import gan_shade
 
 # seeds of the draws: the networks' inits (the JAX driver's PRNGKeys 0, 1
 # and 3), the batch indices, each step's z (seeded with Z_SEED + t), and
 # each eval chunk's z (EVAL_Z_SEED + its first row)
 G_SEED, D_SEED, E_SEED = 0, 1, 3
+VGG_SEED, LABELS_SEED = 4, 5
 INDEX_SEED = 0
 Z_SEED = 2 << 32
 EVAL_Z_SEED = 7
@@ -73,6 +95,18 @@ def load_pairs_dir(path: str):
             segs.append(d["seg"])
             rgbs.append(d["rgb"])
     return np.stack(segs), np.stack(rgbs)
+
+
+def load_label_pairs_dir(path: str):
+    """Every .npz of `path`, sorted by name -> (label (N, 1, H, W) int64,
+    rgb (N, H, W, 3)) numpy arrays."""
+    labels, rgbs = [], []
+    for f in sorted(os.listdir(path)):
+        if f.endswith(".npz"):
+            d = np.load(os.path.join(path, f))
+            labels.append(np.asarray(d["label"], np.int64)[None])
+            rgbs.append(d["rgb"])
+    return np.stack(labels), np.stack(rgbs)
 
 
 def pairs_source(pairs_dir: str) -> str:
@@ -114,11 +148,17 @@ def pairs_source(pairs_dir: str) -> str:
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--arch", default="g4", choices=["g4", "gaugan"],
+                   help="g4: SPADEGenerator4 on rendered layouts; gaugan: "
+                        "GauGAN on label maps")
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--pairs_dir", default="")
-    p.add_argument("--crop", type=int, default=128)
-    p.add_argument("--ngf", type=int, default=32)
-    p.add_argument("--ndf", type=int, default=32)
+    p.add_argument("--crop", type=int, default=None,
+                   help="default 128 (g4), 256 (gaugan)")
+    p.add_argument("--ngf", type=int, default=None,
+                   help="default 32 (g4), 64 (gaugan)")
+    p.add_argument("--ndf", type=int, default=None,
+                   help="default 32 (g4), 64 (gaugan)")
     p.add_argument("--nz", type=int, default=256)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--steps", type=int, default=1000)
@@ -129,8 +169,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="report held-out L1/PSNR every N steps")
     p.add_argument("--val_frac", type=float, default=0.125,
                    help="fraction of pairs held out for eval")
-    p.add_argument("--lambda_l1", type=float, default=50.0,
-                   help="direct pixel L1 weight on G (0 disables)")
+    p.add_argument("--lambda_l1", type=float, default=None,
+                   help="direct pixel L1 weight on G (0 disables; default "
+                        "50, g4 only)")
     p.add_argument("--output_dir", default="./checkpoints_spade")
     p.add_argument("--artifact", default="",
                    help="also write a serving-only artifact here (g_params "
@@ -146,7 +187,75 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--nef", type=int, default=16, help="MMD encoder width")
     p.add_argument("--lr_e", type=float, default=1e-4)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    return p.parse_args(argv)
+    g = p.add_argument_group("gaugan", "GauGAN's flags (--arch gaugan)")
+    g.add_argument("--synthetic_labels", type=int, default=0,
+                   help="N seeded synthetic label maps and images")
+    g.add_argument("--label_nc", type=int, default=150)
+    g.add_argument("--contain_dontcare_label",
+                   action=argparse.BooleanOptionalAction, default=True)
+    g.add_argument("--n_layers_D", type=int, default=4)
+    g.add_argument("--num_D", type=int, default=2)
+    g.add_argument("--lambda_feat", type=float, default=10.0)
+    g.add_argument("--lambda_vgg", type=float, default=10.0)
+    g.add_argument("--no_vgg_loss", action="store_true",
+                   help="the same as --lambda_vgg 0")
+    g.add_argument("--vgg_weights", default="",
+                   help="a torchvision VGG19 state_dict (default: seeded)")
+    args = p.parse_args(argv)
+    gaugan = args.arch == "gaugan"
+    for name, g4, gg in (("crop", 128, 256), ("ngf", 32, 64),
+                         ("ndf", 32, 64), ("lambda_l1", 50.0, 0.0)):
+        if getattr(args, name) is None:
+            setattr(args, name, gg if gaugan else g4)
+    if gaugan and (args.mmd or args.lambda_l1 or args.synthetic):
+        p.error("--arch gaugan takes neither --mmd, --lambda_l1 nor "
+                "--synthetic (its data: --synthetic_labels, --pairs_dir)")
+    if not gaugan and args.synthetic_labels:
+        p.error("--synthetic_labels is GauGAN's (--arch gaugan)")
+    if args.no_vgg_loss:
+        args.lambda_vgg = 0.0
+    return args
+
+
+def semantic_nc(args: argparse.Namespace) -> int:
+    """Channels of GauGAN's one-hot label map."""
+    return args.label_nc + int(args.contain_dontcare_label)
+
+
+def gaugan_networks(args: argparse.Namespace) -> tuple:
+    """GauGAN's (generator, discriminator, VGG19) as the flags shape them,
+    their weights not yet drawn (`init_gaugan`). Built under
+    `torch.device("meta")`, they take a state_dict with
+    `load_state_dict(..., assign=True)` and no weight is made twice."""
+    nc = semantic_nc(args)
+    return (gaugan_generator(nc, args.ngf, args.crop),
+            MultiscaleDiscriminator(nc + 3, args.ndf, args.n_layers_D,
+                                    args.num_D, gaugan=True),
+            VGG19Features())
+
+
+def init_gaugan(args: argparse.Namespace, nets: tuple) -> tuple:
+    """GauGAN's init of `gaugan_networks`' output, on the CPU: G and D as
+    GauGAN initialises them, VGG19 from --vgg_weights or seeded."""
+    gen, disc, vgg = nets
+    init_weights(gen, G_SEED)
+    init_weights(disc, D_SEED)
+    if args.vgg_weights:
+        load_vgg19(vgg, args.vgg_weights)
+    else:
+        init_vgg19(vgg, VGG_SEED)
+    return nets
+
+
+def build_gaugan(args: argparse.Namespace, device, nets: tuple
+                 ) -> GauganTrainer:
+    """The trainer of GauGAN's (generator, discriminator, VGG19) `nets`
+    with their weights in place, moved to `device`: the Adams and the
+    step."""
+    gen, disc, vgg = (net.to(device) for net in nets)
+    state = GanState(gen, disc, args.lr_g, args.lr_d)
+    return GauganTrainer(state, vgg, args.lambda_feat, args.lambda_vgg)
+
 
 
 def _to_nchw(a: np.ndarray, device) -> torch.Tensor:
@@ -164,8 +273,22 @@ class SpadeTrainer:
                  draws: Optional[Callable] = None):
         self.args, self.draws = args, draws
         self.device = device = resolve_device(args.device)
+        self.gaugan = args.arch == "gaugan"
         t0 = time.perf_counter()
-        if args.pairs_dir:
+        if self.gaugan and args.pairs_dir:
+            # integer label maps stay integers: one-hotted per batch
+            segs, rgbs = load_label_pairs_dir(args.pairs_dir)
+            segs = torch.as_tensor(segs, device=device)
+            rgbs = _to_nchw(rgbs, device)
+        elif self.gaugan:
+            args.synthetic_labels = args.synthetic_labels or 32
+            print(f"| making {args.synthetic_labels} synthetic label maps "
+                  f"at {args.crop}px", flush=True)
+            segs, rgbs = label_maps.synthetic_label_pairs(
+                args.synthetic_labels, args.crop, args.label_nc,
+                args.contain_dontcare_label,
+                torch.Generator(device).manual_seed(LABELS_SEED))
+        elif args.pairs_dir:
             segs, rgbs = load_pairs_dir(args.pairs_dir)
             segs, rgbs = _to_nchw(segs, device), _to_nchw(rgbs, device)
         else:
@@ -196,32 +319,20 @@ class SpadeTrainer:
         # dataset, so a resume under another split would grade "held-out"
         # quality on images the warm-started generator trained on
         src = (pairs_source(args.pairs_dir) if args.pairs_dir
+               else f"synthetic_labels:{args.synthetic_labels}:{args.crop}"
+               if self.gaugan
                else f"synthetic:{args.synthetic or 32}:{args.crop}")
         self.val_split = {"source": hashlib.sha1(src.encode()).hexdigest()
                           [:12], "n_val": n_val, "n_total": n_total}
         self.val_heldout_clean = True
 
-        # built and initialised on the CPU (the same values on any
-        # device), then moved
-        gen = port.init_like_jax(
-            SPADEGenerator4(nz=args.nz, ngf=args.ngf, crop_size=args.crop),
-            G_SEED)
-        disc = port.init_like_jax(
-            MultiscaleDiscriminator(segs.shape[1] + rgbs.shape[1],
-                                    args.ndf, n_layers=3, num_d=2,
-                                    mmd_nz=args.nz if args.mmd else 0),
-            D_SEED)
-        enc = None
-        if args.mmd:
-            from sln_tpu_torch.spade.encoders import ConvEncoderPSPSEMMD
-            enc = port.init_like_jax(
-                ConvEncoderPSPSEMMD(args.nef, args.nz, rgbs.shape[1]),
-                E_SEED).to(device)
-        self.state = GanState(gen.to(device), disc.to(device), args.lr_g,
-                              args.lr_d, enc, args.lr_e)
-        make = make_mmd_gan_train_step if args.mmd else make_gan_train_step
-        self.step = make(self.state, lambda_l1=args.lambda_l1)
-
+        if self.gaugan:
+            self.trainer = build_gaugan(
+                args, device, init_gaugan(args, gaugan_networks(args)))
+            self.state, self.step = self.trainer.state, self.trainer.step
+        else:
+            self.state, self.step = self._build_g4(segs.shape[1],
+                                                   rgbs.shape[1])
         self.start_step = 0
         if args.resume:
             self.resume(args.resume)
@@ -230,6 +341,30 @@ class SpadeTrainer:
         self.z_gen = torch.Generator(device)
         self.losses, self.evals = [], []
 
+    def _build_g4(self, seg_nc: int, rgb_nc: int):
+        """(GanState, step) of SPADEGenerator4 against the multiscale
+        discriminator (and the MMD mode's encoder), built and initialised
+        on the CPU (the same values on any device), then moved."""
+        args, device = self.args, self.device
+        gen = port.init_like_jax(
+            SPADEGenerator4(nz=args.nz, ngf=args.ngf, crop_size=args.crop),
+            G_SEED)
+        disc = port.init_like_jax(
+            MultiscaleDiscriminator(seg_nc + rgb_nc, args.ndf, n_layers=3,
+                                    num_d=2,
+                                    mmd_nz=args.nz if args.mmd else 0),
+            D_SEED)
+        enc = None
+        if args.mmd:
+            from sln_tpu_torch.spade.encoders import ConvEncoderPSPSEMMD
+            enc = port.init_like_jax(
+                ConvEncoderPSPSEMMD(args.nef, args.nz, rgb_nc),
+                E_SEED).to(device)
+        state = GanState(gen.to(device), disc.to(device), args.lr_g,
+                         args.lr_d, enc, args.lr_e)
+        make = make_mmd_gan_train_step if args.mmd else make_gan_train_step
+        return state, make(state, lambda_l1=args.lambda_l1)
+
     def resume(self, path: str) -> None:
         """Warm-start the networks and spectral vectors (Adam restarts, as
         the checkpoint stores none) and carry the split's cleanliness
@@ -237,7 +372,8 @@ class SpadeTrainer:
         with open(path, "rb") as f:
             prev = pickle.load(f)
         st, mmd = self.state, self.args.mmd
-        port.load_from_jax(st.generator, prev["g_params"])
+        port.load_from_jax(st.generator, prev["g_params"],
+                           prev.get("g_spectral"))
         if "d_params" in prev:
             port.load_from_jax(st.discriminator, prev["d_params"],
                                prev.get("d_spectral"))
@@ -265,15 +401,28 @@ class SpadeTrainer:
         the chunks, one log at the end (a mean of PSNRs is biased high)."""
         B, n_val = self.args.batch_size, self.n_val
         l1s, mses = 0.0, 0.0
-        for s in range(0, n_val, B):
-            seg = self.val_segs[s:s + B]
-            z = torch.randn((seg.shape[0], self.args.nz), device=self.device,
-                            generator=torch.Generator(
-                                self.device).manual_seed(EVAL_Z_SEED + s))
-            l1, _, mse = self.metrics(seg, self.val_rgbs[s:s + B], z)
-            l1s += l1 * seg.shape[0]
-            mses += mse * seg.shape[0]
+        G = self.state.generator
+        G.eval()          # running statistics, spectral vectors held
+        try:
+            for s in range(0, n_val, B):
+                seg = self.to_seg(self.val_segs[s:s + B])
+                z = None if self.gaugan else torch.randn(
+                    (seg.shape[0], self.args.nz), device=self.device,
+                    generator=torch.Generator(
+                        self.device).manual_seed(EVAL_Z_SEED + s))
+                l1, _, mse = self.metrics(seg, self.val_rgbs[s:s + B], z)
+                l1s += l1 * seg.shape[0]
+                mses += mse * seg.shape[0]
+        finally:
+            G.train()
         return l1s / n_val, gan_shade.psnr_from_mse(mses / n_val)
+
+    def to_seg(self, segs: torch.Tensor) -> torch.Tensor:
+        """The generator's input of stored rows: GauGAN's label ids
+        one-hotted (preprocess_input), else the stored maps."""
+        if self.gaugan:
+            return label_maps.one_hot(segs, semantic_nc(self.args))
+        return segs
 
     def save(self, t: int, extra: dict) -> None:
         args, st = self.args, self.state
@@ -285,10 +434,12 @@ class SpadeTrainer:
                   "trained_steps": self.start_step + t,
                   "val_split": self.val_split,
                   "val_heldout_clean": self.val_heldout_clean}
-        g_params, _ = port.params_to_jax(st.generator)
+        g_params, g_spectral = port.params_to_jax(st.generator)
         d_params, d_spectral = port.params_to_jax(st.discriminator)
         payload = {"g_params": g_params, "d_params": d_params,
                    "d_spectral": d_spectral, "config": config}
+        if g_spectral:                        # GauGAN's spectral blocks
+            payload["g_spectral"] = g_spectral
         if args.mmd:
             payload["e_params"], payload["e_spectral"] = \
                 port.params_to_jax(st.encoder)
@@ -307,7 +458,7 @@ class SpadeTrainer:
     def batch(self, t: int):
         """Step t's (seg, rgb, z): indices from the trainer's index
         generator, z from a generator seeded with Z_SEED + t (or
-        draws(t))."""
+        draws(t)); GauGAN takes no z (None)."""
         if self.draws is not None:
             idx, z = self.draws(t)
             idx = torch.as_tensor(idx, device=self.device)
@@ -316,11 +467,13 @@ class SpadeTrainer:
             B = self.args.batch_size
             idx = torch.randint(0, len(self.segs), (B,), device=self.device,
                                 generator=self.index_gen)
-            self.z_gen.manual_seed(Z_SEED + t)
-            z = torch.randn((B, self.args.nz), device=self.device,
-                            generator=self.z_gen)
-        return (self.segs.index_select(0, idx),
-                self.rgbs.index_select(0, idx), z)
+            z = None
+            if not self.gaugan:
+                self.z_gen.manual_seed(Z_SEED + t)
+                z = torch.randn((B, self.args.nz), device=self.device,
+                                generator=self.z_gen)
+        seg = self.to_seg(self.segs.index_select(0, idx))
+        return seg, self.rgbs.index_select(0, idx), z
 
     def train(self, eval_before: bool = False) -> "SpadeTrainer":
         """args.steps steps with the prints, evals and saves of the JAX
@@ -335,12 +488,14 @@ class SpadeTrainer:
                   flush=True)
         t0 = time.perf_counter()
         for t in range(1, args.steps + 1):
-            losses = self.step(*self.batch(t))
+            seg, rgb, z = self.batch(t)
+            losses = (self.step((seg, rgb)) if self.gaugan
+                      else self.step(seg, rgb, z))
             self.losses.append(losses)
             if t % args.print_every == 0:
                 rate = t * args.batch_size / (time.perf_counter() - t0)
                 print(f"step {t} ({rate:.1f} img/s): " + " ".join(
-                    f"{k[0]}={float(v):.4f}"
+                    f"{k if self.gaugan else k[0]}={float(v):.4f}"
                     for k, v in sorted(losses.items())), flush=True)
             if args.eval_every and self.n_val and (
                     t % args.eval_every == 0 or t == args.steps):

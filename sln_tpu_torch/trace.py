@@ -20,6 +20,11 @@ Counters are host integers in one registry, read with `counters()`:
         while a profiler records)
     refine.graph_replays   refine steps run as a replay of the step's
         CUDA graph (counted only while a profiler records)
+    gan.images   images through GauGAN's generator, with and without
+        gradient (`GauganTrainer`; counted only while a profiler records)
+    spectral.power_iters   power-iteration steps taken by SpectralConvs in
+        training forwards, all summed (counted only while a profiler
+        records)
 
 A counter that would need a device value (`count_tensor`) keeps a
 reference to the value's tensor and sums it when `counters()` is read,

@@ -24,6 +24,7 @@ from sln_tpu_torch.spade import discriminator as td
 from sln_tpu_torch.spade import encoders as te
 from sln_tpu_torch.spade import losses as tl
 from sln_tpu_torch.spade import port
+from sln_tpu_torch.spade.classic import SPADEGenerator
 from sln_tpu_torch.spade.generator import SPADEGenerator4
 from sln_tpu_torch.spade.spectral import SpectralConv, power_iteration
 
@@ -379,3 +380,67 @@ def test_init_statistics_like_flax(nets):
                 top = float(torch.linalg.matrix_norm(m.w_mat().detach(), 2))
                 assert 0.5 * top < sigma <= top * (1 + 1e-5)
     assert n_checked >= 20
+
+
+# ---------------------------------------------------------------------------
+# the default forms, unchanged by GauGAN's options
+# ---------------------------------------------------------------------------
+# sums and absolute sums (float64 of the float32 results) that the default
+# classic SPADEGenerator, MultiscaleDiscriminator and make_gan_train_step
+# gave before GauGAN's options (label_input, the syncbatch SPADE, spectral
+# blocks, gaugan=True) were added to them
+DEFAULT_FINGERPRINT = {
+    'classic_generator': [-1362.0838646694465, 3225.704623067184],
+    'discriminator': [[169.9786146960514, 247.65100308998353], [400.9649365658188, 601.447410709945], [1000.0841480064555, 1500.1262319213129], [50.600029485474806, 73.79043311643181], [13.84943456533074, 21.688905689356034], [506.3676130017848, 759.5514217451564], [5.857589424587786, 92.33229016885161]],
+    'discriminator_u': [3.153157263994217, 11.827333986759186],
+    'gan_losses': [2.021401882171631, 36.738861083984375, 2.012927293777466, 31.367525100708008],
+    'gan_g_params': [16.768447561238148, 148889.93110743666],
+    'gan_d_state': [2.1325861552668357, 511.0415793319862],
+}
+
+
+def default_fingerprint():
+    def s(t):
+        t = t.detach().double()
+        return [float(t.sum()), float(t.abs().sum())]
+
+    gen = torch.Generator().manual_seed(5)
+    seg = torch.zeros(2, 41, 32, 32)
+    seg[:, 0] = torch.rand(2, 32, 32, generator=gen) * 2 - 1
+    cls = torch.randint(1, 41, (2, 1, 32, 32), generator=gen)
+    seg[:, 1:] = torch.zeros(2, 40, 32, 32).scatter_(1, cls - 1, 1.0)
+    real = torch.rand(2, 3, 32, 32, generator=gen) * 2 - 1
+    z = torch.randn(2, 8, generator=gen)
+    out = {}
+    g = port.init_like_jax(SPADEGenerator(nz=8, ngf=8, crop_size=32), 0)
+    with torch.no_grad():
+        out["classic_generator"] = s(g(seg, z))
+    d = port.init_like_jax(td.MultiscaleDiscriminator(44, 4, 3, 2), 1)
+    with torch.no_grad():
+        feats = d(torch.cat([seg, real], 1), True)
+    out["discriminator"] = [s(f) for fs in feats for f in fs]
+    out["discriminator_u"] = s(torch.cat([b for n, b in d.named_buffers()
+                                          if n.endswith(".u")]))
+    st = tl.GanState(port.init_like_jax(
+        SPADEGenerator4(nz=8, ngf=8, crop_size=32), 0), port.init_like_jax(
+        td.MultiscaleDiscriminator(44, 4, 3, 2), 1), 1e-4, 4e-4)
+    step = tl.make_gan_train_step(st, lambda_l1=50.0)
+    losses = [step(seg, real, z), step(seg.flip(0), real.flip(0), z)]
+    out["gan_losses"] = [float(x[k]) for x in losses
+                         for k in ("d_loss", "g_loss")]
+    out["gan_g_params"] = s(torch.cat([p.flatten() for p in
+                                       st.generator.parameters()]))
+    out["gan_d_state"] = s(torch.cat([p.flatten() for p in
+                                      st.discriminator.state_dict().values()]))
+    return out
+
+
+def test_default_forms_unchanged_by_gaugan_options():
+    """The default classic generator's output, the default discriminators'
+    features, logits and advanced u, and two default GAN steps' losses and
+    states, against their values from before GauGAN's options (rtol 1e-5:
+    the same code, float32's rounding across CPUs and thread counts)."""
+    got = default_fingerprint()
+    assert set(got) == set(DEFAULT_FINGERPRINT)
+    for k, want in DEFAULT_FINGERPRINT.items():
+        close(np.array(got[k]), np.array(want), atol=0, rtol=1e-5, msg=k)
