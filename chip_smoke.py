@@ -525,9 +525,11 @@ def op_trace_mode():
 
 
 def step_twice_bitwise(model, batch, inputs, bank, cfg, device) -> None:
-    """One refine step, twice, from the same state with the same noise: the
-    loss, z.grad and every parameter's .grad must be the same bits, and so
-    must every op's output in between; names the first op that differs."""
+    """One eager refine step, twice, from the same state with the same
+    noise: the loss, z.grad and every parameter's .grad must be the same
+    bits, and so must every op's output in between; names the first op
+    that differs. (Through `step` a Refiner whose step graph the card
+    holds would replay it, and the op trace would see no op.)"""
     midx, target, size_t, room_row = inputs
     with torch.no_grad():
         z0 = model.encode(batch)[0]
@@ -539,7 +541,7 @@ def step_twice_bitwise(model, batch, inputs, bank, cfg, device) -> None:
         r = refine.make_refine_step(copy.deepcopy(model), batch, midx, bank,
                                     target, size_t, room_row, cfg, z0)
         with op_trace_mode() as trace:
-            loss = r.step(noise)["total"]
+            loss = r._step(noise)["total"]
         torch.cuda.synchronize()
         grads = [r.z.grad] + [p.grad for p in r.model.parameters()
                               if p.grad is not None]

@@ -20,6 +20,9 @@ Counters are host integers in one registry, read with `counters()`:
         while a profiler records)
     refine.graph_replays   refine steps run as a replay of the step's
         CUDA graph (counted only while a profiler records)
+    refine.graph_captures, refine.graph_reuses   refine step graphs
+        captured, and Refiners that replay a graph another one captured
+        (counted once each, only while a profiler records)
     gan.images   images through GauGAN's generator, with and without
         gradient (`GauganTrainer`; counted only while a profiler records)
     spectral.power_iters   power-iteration steps taken by SpectralConvs in

@@ -29,6 +29,7 @@ import dataclasses
 import functools
 import os
 import pickle
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -230,12 +231,23 @@ class Refiner:
     noise passed to `step` is the global batch's too. The returned losses
     are the global batch's.
 
-    On the card and off a mesh, the step from step 1 on is one CUDA graph,
-    captured at step 1 and replayed (`replays`): the host launches the
-    graph instead of the step's ~1,400 kernels. Step 0 runs eagerly, as
-    every step on the CPU or a mesh does (a mesh's step all-reduces
-    inside); the graph's update moves z and the parameters where they
-    lie, so everything above holds of it too.
+    On the card and off a mesh (`replays`), the step is one CUDA graph
+    (`StepGraph`) that the host launches instead of the step's ~1,400
+    kernels, with the eager step's bits. A card keeps the graph of the
+    newest key (`graph_key`: shapes, bank, configurations); a Refiner of
+    that key replays it from its own step 0, and only the first Refiner of
+    a key runs step 0 eagerly and captures the graph at step 1. The graph
+    reads and writes tensors of its own (its slots), and one Refiner at a
+    time owns them: binding copies the Refiner's inputs, z, parameters,
+    buffers and momentum buffers into the slots, and from then on its z,
+    its model's parameters and buffers (`.data`), their `.grad` and its
+    momentum buffers ARE the slots, so the model is still updated in
+    place. When another Refiner binds, the last owner's tensors get
+    private copies of their values; a Refiner that steps again after that
+    binds again. The caller's inputs are never written. Hold clones, not
+    views, of a Refiner's z or parameters across other Refiners' steps.
+    The CPU, a mesh (whose step all-reduces inside) and `snapshot` run
+    eagerly.
     """
 
     def __init__(self, model: Sg2ScVAE, batch: SceneBatch, model_idx,
@@ -269,7 +281,7 @@ class Refiner:
         self.k = 0              # steps taken
         self.noises: List[torch.Tensor] = []
         self.graphed = self.replays(device, self.mesh)
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph: Optional[StepGraph] = None
 
     @staticmethod
     def replays(device, mesh: Optional[Mesh]) -> bool:
@@ -277,6 +289,54 @@ class Refiner:
         CUDA graph: on the card, with no process group."""
         return (torch.device(device).type == "cuda"
                 and not (mesh is not None and mesh.distributed))
+
+    def graph_key(self) -> tuple:
+        """What a captured step depends on besides the values it reads:
+        the device; the shapes and dtypes of the per-room inputs (B,
+        objects, triples, render and pyramid sizes), of z and of the
+        model's parameters and buffers; the model's configuration; the
+        bank, by identity (the graph reads its tensors where they lie);
+        the configurations the step reads and the optimizer's
+        hyperparameters (the graph bakes their scalars in); the matmul
+        precision. Refiners of one key replay one graph."""
+        def shapes(ts):
+            return tuple((tuple(t.shape), t.dtype, t.device) for t in ts)
+
+        hyper = tuple(tuple(sorted((k, v) for k, v in g.items()
+                                   if k != "params"))
+                      for g in self.opt.param_groups)
+        return (self.z.device, shapes(self._inputs()),
+                shapes(self._leaves()), self.model.cfg, id(self.bank),
+                self.ref, self.rcfg, hyper,
+                torch.get_float32_matmul_precision(),
+                torch.backends.cudnn.allow_tf32)
+
+    def _inputs(self) -> List[torch.Tensor]:
+        """The per-room tensors the step reads, in a fixed order."""
+        depth, tgts, ignores = self.tg_pyr
+        return [*self.batch, self.model_idx, self.room_mask,
+                self.renderable, self.angles_gt, self.room_row_gt,
+                self.size_targets, depth, *tgts, *ignores]
+
+    def _reading(self, inputs: List[torch.Tensor]) -> "Refiner":
+        """A shallow copy of this Refiner whose step reads `inputs` (in
+        `_inputs`' order) in place of its own."""
+        r, it = copy.copy(self), iter(inputs)
+
+        def take(n):
+            return [next(it) for _ in range(n)]
+
+        r.batch = SceneBatch(*take(len(self.batch)))
+        (r.model_idx, r.room_mask, r.renderable, r.angles_gt,
+         r.room_row_gt, r.size_targets, depth) = take(7)
+        n = len(self.tg_pyr[1])
+        r.tg_pyr = (depth, take(n), take(n))
+        return r
+
+    def _leaves(self) -> List[torch.Tensor]:
+        """z, then the model's parameters and buffers: the state the step
+        updates (the buffers it only reads)."""
+        return [self.z, *self.model.parameters(), *self.model.buffers()]
 
     def draw_noise(self) -> torch.Tensor:
         """The next step's noise for this rank's rooms, drawn for the
@@ -365,9 +425,14 @@ class Refiner:
             noise = (self.noise(self.k) if noise is None
                      else noise[self.rows])
             self.k += 1
-            if self.graphed and self.k > 1:
-                return self._replay(noise)
-            return self._step(noise)
+            if self.graphed and self._graph is None:
+                self._graph = self._cached_graph()
+                if self._graph is None and self.k > 1:
+                    with trace.span("sln.refine.capture"):
+                        self._graph = self._capture(noise)
+            if self._graph is None:
+                return self._step(noise)
+            return self._replay(noise)
 
     def _step(self, noise: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The step, run eagerly."""
@@ -383,47 +448,103 @@ class Refiner:
             self.opt.step()
         return aux
 
-    def _capture(self, noise: torch.Tensor) -> None:
-        """Capture `_step` into a CUDA graph (nothing runs): its noise read
-        from a static slot; the grads set to None first, so the captured
-        backward makes them and each replay overwrites them; the losses
-        stacked into a static output. SGD's momentum buffers come from
-        step 0. Every Refiner on a card captures into one memory pool, so
-        a room's graph reuses what the last room's let go; an older graph
-        may still replay, since no tensor of the pool carries a value from
-        one replay to the next."""
+    def _cached_graph(self) -> Optional[StepGraph]:
+        """The card's step graph if its key is this Refiner's (a graph
+        another Refiner captured: counted as a reuse)."""
+        graph = _step_graphs.get(self.z.device)
+        if graph is None or graph.key != self.graph_key():
+            return None
+        if trace.recording():
+            trace.count("refine.graph_reuses")
+        return graph
+
+    def _capture(self, noise: torch.Tensor) -> StepGraph:
+        """Capture `_step` into a CUDA graph (nothing runs), owned by this
+        Refiner and cached for its card: the per-room inputs and the noise
+        read from slots of the graph's own (copies); the grads set to None
+        first, so the captured backward makes them and each replay
+        overwrites them; the losses stacked into a static output. z, the
+        parameters, buffers and SGD's momentum buffers (from step 0) are
+        this Refiner's. Every graph on a card is captured into one memory
+        pool, so a room's graph reuses what the last one let go; an older
+        graph may still replay, since no tensor of the pool that a graph
+        does not hold carries a value from one replay to the next."""
         device = self.z.device
-        self._noise = noise.clone()
+        inputs = [t.clone() for t in self._inputs()]
+        noise_slot = noise.clone()
+        reader = self._reading(inputs)
         graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize(device)      # as torch.cuda.graph does
         side = _capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        last = _last_graph.get(device)
+        last = _step_graphs.get(device)
         with torch.cuda.stream(side), trace.tally() as tally:
             graph.capture_begin(pool=torch.cuda.graph_pool_handle()
-                                if last is None else last.pool())
+                                if last is None else last.graph.pool())
             try:
-                aux = self._step(self._noise)
-                self._aux = torch.stack(list(aux.values()))
+                aux = reader._step(noise_slot)
+                out = torch.stack(list(aux.values()))
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(side)
-        _last_graph[device] = graph
-        self._graph, self._tally, self._aux_keys = graph, tally, list(aux)
+        if trace.recording():
+            trace.count("refine.graph_captures")
+        leaves = self._leaves()
+        step_graph = StepGraph(
+            self.graph_key(), self.bank, graph, tally, inputs, noise_slot,
+            out, list(aux), leaves,
+            [self.opt.state[p].get("momentum_buffer")
+             for p in _opt_params(self.opt)])
+        step_graph.own(self)
+        _step_graphs[device] = step_graph
+        return step_graph
+
+    def _bind(self, graph: StepGraph) -> None:
+        """Make this Refiner the owner of `graph`: the last owner's state
+        handed back to it, this Refiner's inputs and state copied into the
+        slots, and its z, parameters, buffers, their grads and its
+        momentum buffers made the slots. A momentum buffer SGD has not made
+        yet becomes -0: SGD's buffer update on it, -0 * m + g, is g bit
+        for bit (a -0 too), which is what its first step's clone of g
+        is."""
+        with trace.span("sln.refine.bind"):
+            graph.release()
+            leaves = self._leaves()
+            torch._foreach_copy_(graph.inputs, self._inputs())
+            torch._foreach_copy_(graph.leaves, [t.detach() for t in leaves])
+            for t, slot, grad in zip(leaves, graph.leaves, graph.grads):
+                t.data = slot
+                if grad is not None:
+                    t.grad = grad
+            fresh = []
+            for p, slot in zip(_opt_params(self.opt), graph.moms):
+                if slot is None:
+                    continue
+                state = self.opt.state[p]
+                if "momentum_buffer" in state:
+                    slot.copy_(state["momentum_buffer"])
+                else:
+                    fresh.append(slot)
+                state["momentum_buffer"] = slot
+            if fresh:
+                torch._foreach_zero_(fresh)
+                torch._foreach_neg_(fresh)
+            graph.own(self)
 
     def _replay(self, noise: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The step as a replay of its graph (captured first, at step 1)."""
-        if self._graph is None:
-            with trace.span("sln.refine.capture"):
-                self._capture(noise)
+        """The step as a replay of its graph, bound to this Refiner
+        first if another owns it."""
+        graph = self._graph
+        if not graph.owned_by(self):
+            self._bind(graph)
         with trace.span("sln.refine.replay"):
-            self._noise.copy_(noise)
-            self._graph.replay()
-            self._tally.replay()
+            graph.noise.copy_(noise)
+            graph.graph.replay()
+            graph.tally.replay()
             if trace.recording():
                 trace.count("refine.graph_replays")
-            aux = self._aux.clone()
-        return dict(zip(self._aux_keys, aux.unbind()))
+            aux = graph.out.clone()
+        return dict(zip(graph.aux_keys, aux.unbind()))
 
     def run(self, num_iters: int) -> Dict[str, torch.Tensor]:
         """num_iters steps; per-iteration losses stacked on the device
@@ -439,9 +560,70 @@ class Refiner:
         return self._global_aux(aux), imgs, boxes_pred, ang
 
 
-# the last refine graph captured on each card: it holds the card's pool
-# (a pool that no graph holds is let go) for the next room's capture
-_last_graph: Dict[torch.device, "torch.cuda.CUDAGraph"] = {}
+def _opt_params(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
+class StepGraph:
+    """A refine step captured as a CUDA graph, and the tensors it reads and
+    writes where they lie (its slots): `inputs`, the per-room inputs in
+    `Refiner._inputs`' order, and `noise`, copied in before a replay;
+    `leaves`, z and the model's parameters and buffers; `grads`, their
+    gradients as the graph's backward makes them (None for a buffer, or a
+    parameter the step leaves alone); `moms`, SGD's momentum buffers of
+    the optimizer's parameters (None where there is none). `out` holds the
+    stacked losses named `aux_keys`; `key` is the capturing Refiner's
+    `graph_key`, whose bank the graph holds (so its identity stays
+    unique). `owner` is a weak reference to the Refiner whose state the
+    slots are, `held` weak references to its leaves and optimizer: a
+    model or z the caller keeps still gets its values back when the
+    Refiner is gone."""
+
+    def __init__(self, key, bank, graph, tally, inputs, noise, out,
+                 aux_keys, leaves, moms):
+        self.key, self.bank, self.graph, self.tally = key, bank, graph, tally
+        self.inputs, self.noise, self.out = inputs, noise, out
+        self.aux_keys = aux_keys
+        self.leaves = [t.detach() for t in leaves]
+        self.grads = [t.grad for t in leaves]
+        self.moms = moms
+        self.owner = self.held = None
+
+    def owned_by(self, refiner: Refiner) -> bool:
+        return self.owner is not None and self.owner() is refiner
+
+    def own(self, refiner: Refiner) -> None:
+        self.owner = weakref.ref(refiner)
+        self.held = ([weakref.ref(t) for t in refiner._leaves()],
+                     weakref.ref(refiner.opt))
+
+    def release(self) -> None:
+        """Hand the owner's leaves, grads and momentum buffers that are
+        still alive private copies of their values, so the next owner's
+        replays leave them alone."""
+        if self.held is None:
+            return
+        leaves, opt = self.held
+        for ref in leaves:
+            t = ref()
+            if t is not None:
+                t.data = t.detach().clone()
+                if t.grad is not None:
+                    t.grad = t.grad.clone()
+        opt = opt()
+        if opt is not None:
+            for p in _opt_params(opt):
+                state = opt.state.get(p, {})
+                if "momentum_buffer" in state:
+                    state["momentum_buffer"] = state["momentum_buffer"].clone()
+        self.owner = self.held = None
+
+
+# each card's step graph of the newest key: the next Refiner of that key
+# replays it, and its memory pool serves the next capture (a pool that no
+# graph holds is let go). One a card keeps memory flat; Refiners of keys
+# that alternate capture a graph each, as each holds its own.
+_step_graphs: Dict[torch.device, StepGraph] = {}
 
 
 @functools.lru_cache(maxsize=None)

@@ -361,20 +361,33 @@ def test_gan_step_gives_the_same_bits_twice(card):
 
 
 REFINE_STEPS = 8
+# rooms (rows of the world's batch) refined back to back: three of one key,
+# one of another shape (two rooms a batch), then one of the first shape,
+# whose graph the card no longer holds; and per room whether it captures
+# or reuses the card's step graph
+ROOMS = [slice(0, 1), slice(1, 2), slice(2, 3), slice(0, 2), slice(3, 4)]
+CAPTURES = [1, 0, 0, 1, 1]
+REUSES = [0, 1, 1, 0, 0]
+COUNTED = ("refine.graph_replays", "refine.graph_captures",
+           "refine.graph_reuses", "raster.fwd_launches",
+           "raster.bwd_launches", "raster.dispatched_pairs")
 
 
-def _refine_two_rooms(card, graphed: bool):
-    """Two rooms refined back to back, REFINE_STEPS steps each, under a
-    profiler, from the same weights, z0 and noise: through Refiner.step
-    (eager at step 0, then its CUDA graph) or through its eager step every
-    time. Per room: the steps' losses, z, every parameter and momentum
-    buffer after, the replays and the rasterizer's counters."""
-    import copy
+def _same_bits(a, b) -> bool:
+    """a and b hold the same bytes (a -0 is not a 0)."""
+    def raw(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        raw(a), raw(b))
+
+
+def _refine_world(card):
+    """A small decoder, five val rooms on the card, a bank of its own (so
+    the world's rooms have a step graph key of their own) and the
+    configuration."""
     import dataclasses
+    from types import SimpleNamespace
 
-    from torch.profiler import ProfilerActivity, profile
-
-    from sln_tpu_torch import trace
     from sln_tpu_torch.config import DataConfig, default_config
     from sln_tpu_torch.models.vae import Sg2ScVAE
     from sln_tpu_torch.render import assets, scene as scene_lib
@@ -389,72 +402,177 @@ def _refine_two_rooms(card, graphed: bool):
         refine=dataclasses.replace(cfg.refine, render_size=64, lr_z=2e-2))
     torch.manual_seed(0)
     model = Sg2ScVAE(cfg.model).to(card).eval()
-    rooms = val_batch(cfg, 2, card)
-    rcfg = refine.refine_render_config(cfg)
     bank_host = assets.build_procedural_bank(cfg.render.mesh_subdiv)
-    bank = scene_lib.device_bank(bank_host, cfg.render.shell_subdiv,
-                                 device=card)
-    out = []
-    for j in range(2):
-        batch = rooms.select(slice(j, j + 1))
-        with torch.no_grad():
-            z0, _ = model.encode(batch)
-        ins = refine.prepare_refine_inputs(batch, bank_host, bank, rcfg)
-        r = refine.make_refine_step(copy.deepcopy(model), batch, ins[0],
-                                    bank, *ins[1:], cfg, z0)
-        assert r.graphed
-        noise = 0.25 * torch.randn(
-            (REFINE_STEPS,) + tuple(batch.objs.shape), device=card,
-            generator=torch.Generator(card).manual_seed(j))
-        trace.reset()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]):
-            losses = [r.step(noise[k]) if graphed else r._step(noise[k])
-                      for k in range(REFINE_STEPS)]
-            torch.cuda.synchronize()
-        counts = trace.counters()
-        moms = [r.opt.state[p]["momentum_buffer"]
-                for group in r.opt.param_groups for p in group["params"]
-                if "momentum_buffer" in r.opt.state[p]]
-        out.append({
-            "losses": losses, "z": r.z.detach().clone(),
+    return SimpleNamespace(
+        cfg=cfg, model=model, rooms=val_batch(cfg, 5, card),
+        rcfg=refine.refine_render_config(cfg), bank_host=bank_host,
+        bank=scene_lib.device_bank(bank_host, cfg.render.shell_subdiv,
+                                   device=card))
+
+
+def _room(w, rows, seed: int, model=None):
+    """A Refiner of the world's rooms `rows` (on a copy of the world's
+    model unless `model` is given), its noise for each step, the tensors
+    the caller passes it and clones of them."""
+    import copy
+
+    from sln_tpu_torch.workloads import refine
+
+    batch = w.rooms.select(rows)
+    with torch.no_grad():
+        z0, _ = w.model.encode(batch)
+    ins = refine.prepare_refine_inputs(batch, w.bank_host, w.bank, w.rcfg)
+    r = refine.make_refine_step(
+        copy.deepcopy(w.model) if model is None else model, batch, ins[0],
+        w.bank, *ins[1:], w.cfg, z0)
+    assert r.graphed
+    device = batch.objs.device
+    noise = 0.25 * torch.randn(
+        (REFINE_STEPS,) + tuple(batch.objs.shape), device=device,
+        generator=torch.Generator(device).manual_seed(seed))
+    given = [*batch, *ins, z0]
+    return r, noise, given, [t.clone() for t in given]
+
+
+def _state(r):
+    """Clones of a Refiner's z, every parameter and every momentum
+    buffer."""
+    moms = [r.opt.state[p]["momentum_buffer"]
+            for group in r.opt.param_groups for p in group["params"]
+            if "momentum_buffer" in r.opt.state[p]]
+    return {"z": r.z.detach().clone(),
             "params": [p.detach().clone() for p in r.model.parameters()],
-            "moms": [m.clone() for m in moms],
-            "counts": {k: counts.get(k, 0) for k in (
-                "refine.graph_replays", "raster.fwd_launches",
-                "raster.bwd_launches", "raster.dispatched_pairs")}})
+            "moms": [m.clone() for m in moms]}
+
+
+def _profiled(fn):
+    """fn() under a profiler (the counters count only then): its result
+    and the counters it moved."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sln_tpu_torch import trace
+
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out = fn()
+        torch.cuda.synchronize()
+    counts = trace.counters()
+    return out, {k: counts.get(k, 0) for k in COUNTED}
+
+
+def _refine_rooms(card, graphed: bool):
+    """ROOMS refined back to back, REFINE_STEPS steps each, from the same
+    weights, z0 and noise: through Refiner.step (a room's step graph
+    captured or reused) or through its eager step every time. Per room:
+    the steps' losses, the state after, the counters, and whether the
+    tensors the caller passed are as they were."""
+    w = _refine_world(card)
+    out = []
+    for j, rows in enumerate(ROOMS):
+        r, noise, given, before = _room(w, rows, j)
+        losses, counts = _profiled(lambda: [
+            r.step(noise[k]) if graphed else r._step(noise[k])
+            for k in range(REFINE_STEPS)])
+        out.append({"losses": losses, "counts": counts, **_state(r),
+                    "inputs_kept": all(_same_bits(a, b)
+                                       for a, b in zip(given, before))})
     return out
 
 
+def _assert_same_bits(g, e):
+    """The losses of each step and the state after: the same bits."""
+    assert len(g["losses"]) == len(e["losses"])
+    for lg, le in zip(g["losses"], e["losses"]):
+        assert lg.keys() == le.keys()
+        for k in lg:
+            assert _same_bits(lg[k], le[k]), k
+    assert _same_bits(g["z"], e["z"])
+    assert len(g["params"]) == len(e["params"])
+    assert all(_same_bits(a, b) for a, b in zip(g["params"], e["params"]))
+    assert len(g["moms"]) == len(e["moms"]) > 1
+    assert all(_same_bits(a, b) for a, b in zip(g["moms"], e["moms"]))
+
+
 def test_graphed_refine_gives_the_eager_bits(card):
-    """The refine step replayed as a CUDA graph, two rooms back to back (the
-    second room's graph in the memory pool the first one's used): each
-    step's losses, z, every decoder parameter and every momentum buffer
-    the eager step's bits; each step's losses tensors of their own; 7
-    replays a room; the rasterizer's launches and dispatched pairs counted
-    as the eager steps count them."""
-    graphed = _refine_two_rooms(card, True)
-    eager = _refine_two_rooms(card, False)
-    for g, e in zip(graphed, eager):
-        for lg, le in zip(g["losses"], e["losses"]):
-            assert lg.keys() == le.keys()
-            for k in lg:
-                assert torch.equal(lg[k], le[k]), k
+    """The refine step replayed as a CUDA graph over ROOMS: each step's
+    losses, z, every decoder parameter and every momentum buffer the eager
+    step's bits, for the room that captures the graph (eager step 0, the
+    capture at step 1), for the rooms of its key that replay it from their
+    step 0 (SGD's first update on a -0 momentum buffer), for a room of
+    another shape and for a room of the first shape after it. The tensors
+    the caller passed are never written; each step's losses are tensors of
+    their own; the three rooms of one key capture once and reuse twice;
+    the rasterizer's launches and dispatched pairs are counted as the
+    eager steps count them."""
+    graphed = _refine_rooms(card, True)
+    eager = _refine_rooms(card, False)
+    for j, (g, e) in enumerate(zip(graphed, eager)):
+        _assert_same_bits(g, e)
+        assert g["inputs_kept"] and e["inputs_kept"]
         assert len({d["total"].data_ptr() for d in g["losses"]}) == \
             REFINE_STEPS
         assert len({float(d["total"]) for d in g["losses"]}) == REFINE_STEPS
-        assert torch.equal(g["z"], e["z"])
-        assert len(g["params"]) == len(e["params"])
-        assert all(torch.equal(a, b) for a, b in zip(g["params"],
-                                                     e["params"]))
-        assert len(g["moms"]) == len(e["moms"]) > 1
-        assert all(torch.equal(a, b) for a, b in zip(g["moms"], e["moms"]))
-        assert g["counts"]["refine.graph_replays"] == REFINE_STEPS - 1
+        assert g["counts"]["refine.graph_captures"] == CAPTURES[j]
+        assert g["counts"]["refine.graph_reuses"] == REUSES[j]
+        # a room that reuses the graph replays step 0 too
+        assert g["counts"]["refine.graph_replays"] == \
+            REFINE_STEPS - CAPTURES[j]
         assert e["counts"]["refine.graph_replays"] == 0
         assert g["counts"]["raster.fwd_launches"] == 2 * REFINE_STEPS
         assert g["counts"]["raster.bwd_launches"] == 3 * REFINE_STEPS
         assert g["counts"]["raster.dispatched_pairs"] > 0
+        graph_only = ("refine.graph_replays", "refine.graph_captures",
+                      "refine.graph_reuses")
         assert {k: v for k, v in g["counts"].items()
-                if k != "refine.graph_replays"} == \
-            {k: v for k, v in e["counts"].items()
-             if k != "refine.graph_replays"}
+                if k not in graph_only} == \
+            {k: v for k, v in e["counts"].items() if k not in graph_only}
+    assert sum(g["counts"]["refine.graph_captures"]
+               for g in graphed[:3]) == 1
+    assert sum(g["counts"]["refine.graph_reuses"] for g in graphed[:3]) == 2
+
+
+def _two_in_turn(card, graphed: bool, shared: bool):
+    """Two live Refiners of one key stepped in turn (A's step k, then
+    B's), on a model each or one model they share: both Refiners' losses,
+    their states after, the counters and whether the caller's tensors are
+    as they were."""
+    import copy
+
+    w = _refine_world(card)
+    model = copy.deepcopy(w.model) if shared else None
+    rooms = [_room(w, rows, j, model)
+             for j, rows in enumerate((slice(0, 1), slice(1, 2)))]
+
+    def steps():
+        losses = ([], [])
+        for k in range(REFINE_STEPS):
+            for (r, noise, _, _), hist in zip(rooms, losses):
+                hist.append(r.step(noise[k]) if graphed
+                            else r._step(noise[k]))
+        return losses
+
+    losses, counts = _profiled(steps)
+    return [{"losses": hist, **_state(r),
+             "inputs_kept": all(_same_bits(a, b)
+                                for a, b in zip(given, before))}
+            for hist, (r, _, given, before) in zip(losses, rooms)], counts
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_two_refiners_of_one_key_stepped_in_turn_give_the_eager_bits(
+        card, shared):
+    """Two live Refiners of one key stepped in turn take the step graph
+    from each other every step: the first captures it at its step 1, the
+    second reuses it from its step 1, and each binds again when it steps
+    after the other. Each one's losses, z, parameters (its own model's, or
+    the model they share, which both update) and momentum buffers are the
+    eager steps' bits, taken in the same order; the caller's tensors are
+    never written."""
+    graphed, counts = _two_in_turn(card, True, shared)
+    eager, _ = _two_in_turn(card, False, shared)
+    for g, e in zip(graphed, eager):
+        _assert_same_bits(g, e)
+        assert g["inputs_kept"] and e["inputs_kept"]
+    assert counts["refine.graph_captures"] == 1
+    assert counts["refine.graph_reuses"] == 1
+    assert counts["refine.graph_replays"] == 2 * (REFINE_STEPS - 1)

@@ -349,3 +349,98 @@ def test_graph_only_on_the_card_off_a_mesh(device, distributed, graphed):
         rank=0, world_size=2, device=torch.device(device),
         backend="gloo" if distributed else None)
     assert tref.Refiner.replays(torch.device(device), mesh) == graphed
+
+
+# ---------------------------------------------------------------------------
+# the card's step graph: its key, and the paths that never use it
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def key_world():
+    bank_host = tassets.build_procedural_bank(1)
+    return bank_host, tscene.device_bank(bank_host, 2, device="cpu")
+
+
+def _refiner(s, world, rows, cfg=None, bank=None, mesh=None):
+    """A Refiner of rows `rows` of the slice's batch, on the world's bank
+    unless `bank` is given."""
+    bank_host, shared = world
+    bank = shared if bank is None else bank
+    cfg = s["cfg_t"] if cfg is None else cfg
+    batch = s["tb"].select(rows)
+    ins = tref.prepare_refine_inputs(batch, bank_host, bank,
+                                     tref.refine_render_config(cfg))
+    return tref.make_refine_step(copy.deepcopy(s["tmodel"]), batch, ins[0],
+                                 bank, *ins[1:], cfg,
+                                 torch.as_tensor(s["z0"][rows]), mesh=mesh)
+
+
+def test_graph_key_is_one_for_the_rooms_of_one_traffic(slice_setup,
+                                                       key_world):
+    """Two rooms of one traffic (other objects, boxes and targets, the
+    same shapes, bank and configuration) share a key, so the second
+    replays the first one's step graph."""
+    s = slice_setup
+    a = _refiner(s, key_world, slice(0, 1))
+    b = _refiner(s, key_world, slice(1, 2))
+    assert not torch.equal(a.batch.boxes, b.batch.boxes)
+    assert a.graph_key() == b.graph_key()
+    assert hash(a.graph_key()) == hash(b.graph_key())
+
+
+@pytest.mark.parametrize("change", ["rooms", "render_size",
+                                    "pyramid_sizes", "lr_z", "bank"])
+def test_graph_key_differs_with_what_the_step_reads(slice_setup, key_world,
+                                                    change):
+    """The key changes with B, the render size, the pyramid sizes, a
+    learning rate (a scalar the graph bakes in) or the bank (whose tensors
+    the graph reads where they lie)."""
+    s = slice_setup
+    base = _refiner(s, key_world, slice(0, 1)).graph_key()
+    cfg, rows, bank, ref = s["cfg_t"], slice(1, 2), None, s["cfg_t"].refine
+    if change == "rooms":
+        rows = slice(0, 2)
+    elif change == "render_size":
+        cfg = cfg.replace(refine=dataclasses.replace(ref, render_size=16))
+    elif change == "pyramid_sizes":
+        cfg = cfg.replace(refine=dataclasses.replace(
+            ref, pyramid_sizes=(16, 32)))
+    elif change == "lr_z":
+        cfg = cfg.replace(refine=dataclasses.replace(ref,
+                                                     lr_z=2 * ref.lr_z))
+    else:
+        bank = tscene.device_bank(key_world[0], 2, device="cpu")
+    assert _refiner(s, key_world, rows, cfg, bank).graph_key() != base
+
+
+class _Untouchable(dict):
+    """A graph cache that fails any read or write."""
+
+    def _touched(self, *args, **kwargs):
+        raise AssertionError("the step graph cache was touched")
+
+    __getitem__ = __setitem__ = __contains__ = get = pop = _touched
+    setdefault = update = _touched
+
+
+@pytest.mark.parametrize("meshed", [False, True])
+def test_cpu_and_mesh_refiners_leave_the_graph_cache_alone(
+        slice_setup, key_world, monkeypatch, meshed):
+    """A Refiner on the CPU, with or without a mesh's process group (here
+    a world of one, its collectives identities), steps eagerly and never
+    reads or writes the card's step graph cache."""
+    from sln_tpu_torch.parallel.mesh import Mesh
+
+    monkeypatch.setattr(tref, "_step_graphs", _Untouchable())
+    mesh = None
+    if meshed:
+        mesh = Mesh(rank=0, world_size=1, device=torch.device("cpu"),
+                    backend="gloo")
+        monkeypatch.setattr(tref, "all_reduce_flat",
+                            lambda tensors, mesh: list(tensors))
+    refiner = _refiner(slice_setup, key_world, slice(0, 1), mesh=mesh)
+    assert not refiner.graphed
+    assert (refiner.mesh is not None) == meshed
+    hist = refiner.run(ITERS)
+    assert refiner._graph is None
+    assert bool(torch.isfinite(hist["total"]).all())
+    assert len(set(hist["total"].tolist())) == ITERS
